@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of the flexible-participation federated learning system.
+
+The JAX package ``repro`` is the reference; this package mirrors its layout
+(``core/``, ``configs/``, ``data/``, ``kernels/``, ``models/``, ``fed/``) so
+each module has one counterpart to be held against.  It imports neither
+``jax`` nor anything of ``repro``: what it needs of the reference's
+numpy-only modules it keeps as its own copy.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"`` (see :func:`resolve_device`).  The two kernels of the
+federated round, ``weighted_agg`` and ``masked_sgd``, are hand-written CUDA
+for ``sm_90a`` (``kernels/csrc/``), built with ``nvcc`` at their first
+launch; CPU tensors take their plain PyTorch versions.
+"""
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

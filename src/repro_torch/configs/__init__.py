@@ -1,0 +1,5 @@
+from repro_torch.configs.paper import (EMNIST_CNN, MNIST_MLP, PAPER_CONFIGS,
+                                      SYNTHETIC_LR, PaperModelConfig)
+
+__all__ = ["PaperModelConfig", "MNIST_MLP", "EMNIST_CNN", "SYNTHETIC_LR",
+           "PAPER_CONFIGS"]

@@ -1,0 +1,92 @@
+"""Aggregation schemes (paper §4.1) and the generalized FedAvg update.
+
+Counterpart of ``repro/core/aggregation.py``.  Eq. (2):
+``w <- w + sum_k p_tau^k (w_k - w)`` with round-varying p_tau^k.
+
+Scheme A: only complete devices (s=E), p_tau^k = N p^k / K_tau (round
+          dropped if K_tau = 0).
+Scheme B: accept partial work, fixed p_tau^k = p^k.
+Scheme C: debiased, p_tau^k = (E / s_tau^k) p^k (0 when inactive).
+
+Parameters are dicts of tensors; a client-stacked dict has a leading
+client axis C on every leaf.  Leaves are visited in sorted-key order,
+which is ``jax.tree.leaves`` order for a dict, so the flat (C, D) buffer
+lays the leaves out as the reference's does.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.weighted_agg import row_stride
+
+Params = Dict[str, torch.Tensor]
+
+
+def scheme_coefficients(scheme: str, p, s, E: int) -> torch.Tensor:
+    """p: (C,) static data weights p^k; s: (C,) completed epochs.
+    Returns p_tau: (C,) f32 aggregation coefficients."""
+    p = torch.as_tensor(p, dtype=torch.float32)
+    s = torch.as_tensor(s, dtype=torch.float32, device=p.device)
+    if scheme == "A":
+        complete = (s >= E).float()
+        K = complete.sum()
+        # N is the number of devices in the objective (p > 0), not the
+        # buffer length: capacity slots carry empty columns with p = 0
+        N = (p > 0).float().sum()
+        return torch.where(K > 0, N * p * complete / torch.clamp(K, min=1.0),
+                           0.0)
+    if scheme == "B":
+        return p * (s > 0)
+    if scheme == "C":
+        return torch.where(s > 0, E * p / torch.clamp(s, min=1.0), 0.0)
+    raise ValueError(f"unknown scheme {scheme}")
+
+
+def _apply(params: Params, update: Dict[str, torch.Tensor]) -> Params:
+    """params[k] <- params[k] + update[k] (f32, rounded to the leaf's
+    dtype), in place: the previous round's params are dead once the
+    deltas exist, so the new ones take their memory."""
+    for name, p in params.items():
+        p.add_(update[name].reshape(p.shape))
+    return params
+
+
+def aggregate_deltas(params: Params, deltas: Params,
+                     coeffs: torch.Tensor) -> Params:
+    """w + sum_k c_k delta_k over a stacked client axis, leaf by leaf.
+    deltas: leaves (C, ...) f32; coeffs: (C,).  Updates params in place."""
+    c = coeffs.float()
+    return _apply(params, {
+        name: (c.reshape((-1,) + (1,) * (d.dim() - 1)) * d.float()).sum(0)
+        for name, d in deltas.items()})
+
+
+def flatten_client_deltas(deltas: Params) -> torch.Tensor:
+    """Client-stacked dict (leaves (C, ...)) -> one (C, D_total) f32
+    buffer, leaves concatenated in sorted-key order.  The buffer is the
+    (C, D_total) view of rows padded with zeros to whole 16-byte vectors,
+    the layout the weighted_agg kernel reads (``weighted_agg.padded``)."""
+    leaves = [deltas[name] for name in sorted(deltas)]
+    C = leaves[0].shape[0]
+    D = sum(leaf[0].numel() for leaf in leaves)
+    pad = torch.zeros(C, row_stride(D, torch.float32) - D,
+                      device=leaves[0].device)
+    return torch.cat([leaf.reshape(C, -1).float() for leaf in leaves]
+                     + [pad], dim=1)[:, :D]
+
+
+def aggregate_deltas_flat(params: Params, deltas: Params,
+                          coeffs: torch.Tensor) -> Params:
+    """Same contract as aggregate_deltas, but the whole model is flattened
+    into one (C, D_total) buffer and reduced with ONE weighted_agg launch
+    (instead of one scaled sum per leaf).  Updates params in place."""
+    agg = ops.weighted_agg(coeffs.float(), flatten_client_deltas(deltas))
+    update, off = {}, 0
+    for name in sorted(params):
+        n = params[name].numel()
+        update[name] = agg[off:off + n]
+        off += n
+    return _apply(params, update)

@@ -1,0 +1,78 @@
+"""The federated round (Eq. 1-2) in the equivalent view (App. A.1.1).
+
+Counterpart of ``repro/core/fed_step.py``, client-parallel layout.  All C
+clients of a round train at once as one batched computation (the written
+-out form of the reference's ``jax.vmap`` over clients): each leaf holds
+the C clients' copies as one (C, ...) tensor, one backward pass gives every
+client its own gradient, and each of the E steps updates every leaf with
+one ``masked_sgd`` launch scaled per client by eta * alpha[c, e].
+
+Local updates are vanilla SGD (the paper's optimizer) with the staircase
+learning rate supplied per round; each step is masked by alpha[c, e] in
+{0, 1}, so s_tau^k = sum_e alpha[c, e].
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.core.aggregation import (aggregate_deltas,
+                                          aggregate_deltas_flat)
+from repro_torch.kernels import ops
+
+Params = Dict[str, torch.Tensor]
+
+
+def local_sgd(loss_fn: Callable, params: Params, batches, alpha: torch.Tensor,
+              eta: torch.Tensor) -> Params:
+    """E masked SGD steps on all C clients from the global params.
+
+    loss_fn(params, batch) -> (C,) per-client losses with a leading client
+    axis on params and batch (``models.small.make_loss_fn``); batches:
+    dict of (C, E, ...) tensors, one batch per local step; alpha: (C, E)
+    f32 masks; eta: f32 scalar tensor.  Returns the client deltas
+    w_E - w_0, leaves (C, ...) f32.
+    """
+    C, E = alpha.shape
+    names = sorted(params)
+    # every client starts from the global params; the (C, ...) copies are
+    # rewritten in place by masked_sgd at each step
+    w = {name: params[name].expand(C, *params[name].shape).contiguous()
+         for name in names}
+    for e in range(E):
+        with torch.enable_grad():
+            leaves = {name: w[name].detach().requires_grad_()
+                      for name in names}
+            loss = loss_fn(leaves, {k: b[:, e] for k, b in batches.items()})
+            grads = torch.autograd.grad(loss.sum(),
+                                        [leaves[name] for name in names])
+        # (eta * a) * g, the reference's order of operations
+        scale = eta * alpha[:, e]
+        for name, g in zip(names, grads):
+            ops.masked_sgd(w[name].view(C, -1),
+                           g.reshape(C, -1).contiguous(), scale)
+    deltas = {}
+    for name in names:
+        d = w[name].float()
+        # the copies are dead after this: an f32 leaf becomes its delta in
+        # place
+        deltas[name] = d.sub_(params[name].float())
+    return deltas
+
+
+def fed_round_parallel(loss_fn: Callable, params: Params, batches,
+                       alpha: torch.Tensor, coeffs: torch.Tensor,
+                       eta: torch.Tensor, *, agg: str = "tree") -> Params:
+    """batches: dict of (C, E, ...) tensors; alpha: (C, E); coeffs: (C,).
+    Returns the new params, written into ``params`` in place.
+
+    agg selects the aggregation layout: "tree" reduces leaf by leaf in
+    plain PyTorch; "flat" flattens the deltas into one (C, D_total) buffer
+    and reduces it with a single weighted_agg launch."""
+    deltas = local_sgd(loss_fn, params, batches, alpha, eta)
+    if agg == "flat":
+        return aggregate_deltas_flat(params, deltas, coeffs)
+    if agg == "tree":
+        return aggregate_deltas(params, deltas, coeffs)
+    raise ValueError(f"agg must be tree|flat, got {agg!r}")

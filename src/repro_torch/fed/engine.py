@@ -1,0 +1,195 @@
+"""Device-resident multi-round federated engine, plan mode.
+
+Counterpart of ``repro/fed/engine.py``.  Client datasets are padded to a
+common length and live on the device once, as (capacity, Nmax, ...)
+stacks; a round gathers its batches there from host-sampled indices (the
+*plan*: alpha masks and batch indices drawn with the numpy RNG in the
+seed order, so the run is sample-for-sample the reference's).  Scheme
+A/B/C coefficients, the fast-reboot boost (exact O((tau-tau0)^-2) decay at
+every round) and the staircase LR are computed on the device, and the
+round's deltas are reduced with one ``weighted_agg`` launch (``agg="flat"``)
+or leaf by leaf (``agg="tree"``).
+
+Capacity slots: slots beyond the founding clients start empty;
+``admit_many`` writes a burst of clients into slots with one transfer per
+buffer, so a membership event never rebuilds the engine.  Device-mode
+sampling (the on-device inverse-CDF draw of the trace law) waits for a
+later slice; this engine takes a plan.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import scheme_coefficients
+from repro_torch.core.fed_step import fed_round_parallel
+from repro_torch.device import resolve_device
+from repro_torch.fed.task import ArrayTask
+
+Params = Dict[str, torch.Tensor]
+
+
+class RoundEngine:
+    """Runs spans of federated rounds on device-resident client data.
+
+    The model layer is a ClientTask (fed/task.py); ``loss_fn=`` wraps into
+    the equivalent ArrayTask.  Membership, data weights p, the LR-restart
+    round and reboot state are constant within a span (the scheduler
+    splits spans at every event) and enter ``run_span`` as arguments.
+
+    ``agg="auto"`` picks ``"flat"``, the weighted_agg kernel, on CUDA, and
+    ``"tree"`` on the CPU, where the kernel's plain version loops over the
+    clients and the per-leaf reduction is cheaper.
+    """
+
+    def __init__(self, *, clients, local_epochs: int, batch_size: int,
+                 loss_fn=None, task=None, scheme: str = "C",
+                 eta0: float = 0.01, agg: str = "auto",
+                 capacity: Optional[int] = None,
+                 max_samples: Optional[int] = None, device=None):
+        if (task is None) == (loss_fn is None):
+            raise ValueError("pass exactly one of task= or loss_fn=")
+        if task is None:
+            if not clients:
+                raise ValueError("RoundEngine needs at least one founding "
+                                 "client (fixes the feature shape)")
+            task = ArrayTask(loss_fn, np.asarray(clients[0].x).shape[1:])
+        self.task = task
+        self.loss_fn = task.loss_fn
+        self.device = resolve_device(device)
+        self.E = local_epochs
+        self.B = batch_size
+        self.scheme = scheme
+        self.eta0 = eta0
+        # a tensor, so eta0 / x is a true f32 division (a Python number
+        # over a tensor is computed as eta0 * (1 / x), rounded twice)
+        self._eta0 = torch.tensor(eta0, dtype=torch.float32,
+                                  device=self.device)
+        if agg == "auto":
+            agg = "flat" if self.device.type == "cuda" else "tree"
+        if agg not in ("tree", "flat"):
+            raise ValueError(f"agg must be auto|tree|flat, got {agg!r}")
+        self.agg = agg
+
+        C = len(clients)
+        if C == 0 and (capacity is None or max_samples is None):
+            raise ValueError("RoundEngine without founding clients needs "
+                             "explicit capacity= and max_samples=")
+        if capacity is None:
+            capacity = C
+        if capacity < max(C, 1):
+            raise ValueError(f"capacity {capacity} < {C} founding clients")
+        self.capacity = capacity
+        nmax = max((c.n for c in clients), default=1)
+        if max_samples is not None:
+            nmax = max(nmax, max_samples)
+        self.nmax = nmax
+        stacks = {name: np.zeros((capacity, nmax) + spec.shape, spec.dtype)
+                  for name, spec in task.buffers.items()}
+        for i, c in enumerate(clients):
+            for name, arr in self._client_rows(c).items():
+                stacks[name][i, :c.n] = arr
+        # datasets move host->device exactly once, here
+        self.data = {name: torch.from_numpy(buf).to(self.device)
+                     for name, buf in stacks.items()}
+        self._slots = torch.arange(capacity, device=self.device)[:, None,
+                                                                 None]
+
+    def _client_rows(self, client):
+        """The task's per-sample arrays for one client, shape-checked
+        against the engine's buffer specs."""
+        arrays = self.task.client_arrays(client)
+        for name, arr in arrays.items():
+            spec = self.task.buffers[name]
+            if arr.shape != (client.n,) + spec.shape:
+                raise ValueError(
+                    f"feature shape {arr.shape[1:]} != engine feature "
+                    f"shape {spec.shape} (buffer {name!r})")
+        return arrays
+
+    def _check_slot(self, slot: int) -> None:
+        if not 0 <= slot < self.capacity:
+            raise IndexError(f"slot {slot} out of range [0, {self.capacity})")
+
+    # -- capacity-slot lifecycle ----------------------------------------------
+    def admit_many(self, assignments) -> None:
+        """Write a burst of (slot, client) pairs into their slots: the rows
+        are padded and stacked on the host, then go up as one transfer and
+        one indexed write per buffer."""
+        assignments = list(assignments)
+        if not assignments:
+            return
+        slots = [slot for slot, _ in assignments]
+        for slot in slots:
+            self._check_slot(slot)
+        if len(set(slots)) != len(slots):
+            raise ValueError(f"admit_many got duplicate slots: {slots}")
+        for _, c in assignments:
+            if c.n > self.nmax:
+                raise ValueError(
+                    f"client has {c.n} samples > slot capacity {self.nmax}; "
+                    f"build the engine with max_samples >= {c.n}")
+        index = torch.tensor(slots, device=self.device)
+        for name, spec in self.task.buffers.items():
+            rows = np.zeros((len(slots), self.nmax) + spec.shape, spec.dtype)
+            for j, (_, c) in enumerate(assignments):
+                rows[j, :c.n] = self._client_rows(c)[name]
+            self.data[name][index] = torch.from_numpy(rows).to(self.device)
+
+    def evict(self, slot: int) -> None:
+        """Free a slot.  Its data stays on the device, unreachable (alpha =
+        0 and coefficient 0: the plan and the weights skip a free slot)
+        until the next admit overwrites it."""
+        self._check_slot(slot)
+
+    # -- one round ------------------------------------------------------------
+    def _round_core(self, params, alpha, idx, tau, p, rb_tau0, rb_boost,
+                    lr_shift: int):
+        batches = self.task.make_batch(
+            {name: buf[self._slots, idx] for name, buf in self.data.items()})
+        s = alpha.sum(-1)
+        coeffs = scheme_coefficients(self.scheme, p, s, self.E)
+        # fast-reboot boost, exact O((tau-tau0)^-2) decay at every tau;
+        # rb_boost == 1 for never-rebooted clients => multiplier 1
+        dt = torch.clamp(tau - rb_tau0, min=0).float()
+        coeffs = coeffs * (1.0 + (rb_boost - 1.0) / (1.0 + dt).square())
+        eta = self._eta0 / torch.clamp((tau + 1 - lr_shift).float(), min=1.0)
+        params = fed_round_parallel(self.loss_fn, params, batches, alpha,
+                                    coeffs, eta, agg=self.agg)
+        return params, s, eta
+
+    # -- host entry point -----------------------------------------------------
+    def run_span(self, params: Params, tau_start: int, n_rounds: int, *,
+                 plan, p, lr_shift_tau: int, reboot_tau0, reboot_boost):
+        """Run n_rounds starting at tau_start with fixed membership.
+
+        plan: (alphas (R, capacity, E), idxs (R, capacity, E, B)) sampled on
+        the host.  params are updated in place.  Returns (params, metrics)
+        with the metrics still on the device, stacked over rounds:
+        s (R, capacity) and eta (R,), so the host does not wait for the
+        span; the caller reads them back when it needs them.
+        """
+        dev = self.device
+        p = torch.as_tensor(p, dtype=torch.float32, device=dev)
+        rb_tau0 = torch.as_tensor(reboot_tau0, dtype=torch.int32, device=dev)
+        rb_boost = torch.as_tensor(reboot_boost, dtype=torch.float32,
+                                   device=dev)
+        alphas = torch.as_tensor(plan[0], dtype=torch.float32, device=dev)
+        idxs = torch.as_tensor(plan[1], dtype=torch.int64, device=dev)
+        # round indices are made on the device: a host scalar per round
+        # would be a blocking copy per round
+        taus = tau_start + torch.arange(n_rounds, dtype=torch.int32,
+                                        device=dev)
+        ss, etas = [], []
+        for r in range(n_rounds):
+            params, s, eta = self._round_core(
+                params, alphas[r], idxs[r], taus[r], p, rb_tau0, rb_boost,
+                lr_shift_tau)
+            ss.append(s)
+            etas.append(eta)
+        if not ss:
+            return params, {"s": torch.zeros((0, self.capacity), device=dev),
+                            "eta": torch.zeros(0, device=dev)}
+        return params, {"s": torch.stack(ss), "eta": torch.stack(etas)}

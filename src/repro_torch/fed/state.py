@@ -1,0 +1,229 @@
+"""FedState: the federation control plane as plain host data.
+
+Counterpart of ``repro/fed/state.py`` for arrivals and departures: the slot
+registry, objective/joined/departed membership, the reboot arrays, the
+LR-shift round, the pending event queue and the numpy RNG.  Applying an
+event mutates host bookkeeping only and returns the *engine actions*
+(slot admits/evicts) it implies; the StreamScheduler executes them.
+
+Invariants (the reference's):
+  * client id == index into ``clients``; founding clients occupy slots
+    0..C-1 in id order, later arrivals take the lowest free slot;
+  * the queue is a heap keyed by (tau, push order);
+  * ``sample_plan`` consumes the RNG per occupied active slot in slot
+    order, the seed loop's draw order, so a seed gives both packages the
+    same participation and batch stream.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.arrivals import RebootState
+from repro_torch.core.departures import BoundTerms, should_exclude
+from repro_torch.fed.driver import Client
+from repro_torch.fed.events import Arrival, Departure, ParticipationEvent
+
+# engine actions a transition emits: ("admit", slot, client_id),
+# ("evict", slot)
+SlotAction = tuple
+
+
+class FedState:
+    """Control-plane state for one federation run."""
+
+    def __init__(self, *, clients: List[Client], capacity: int,
+                 reboot_boost: float = 3.0, fast_reboot: bool = True,
+                 horizon: Optional[int] = None,
+                 bound_terms: Optional[BoundTerms] = None,
+                 local_epochs: int = 5, seed: int = 0,
+                 rng: Optional[np.random.Generator] = None,
+                 objective: Optional[set] = None,
+                 reboots: Optional[List[RebootState]] = None):
+        self.clients: List[Client] = clients
+        self.capacity = capacity
+        self.reboot_boost = reboot_boost
+        self.fast_reboot = fast_reboot
+        self.horizon = horizon
+        self.bound_terms = bound_terms or BoundTerms(
+            D=5.0, V=20.0, gamma=10.0, E=local_epochs)
+        self.rng = rng if rng is not None else np.random.default_rng(seed)
+
+        C = len(self.clients)
+        self.slot_of: Dict[int, int] = {i: i for i in range(C)}
+        self.client_at: Dict[int, int] = {i: i for i in range(C)}
+        self.free_slots: List[int] = list(range(C, capacity))
+        heapq.heapify(self.free_slots)
+
+        self.objective: set = (objective if objective is not None
+                               else set(range(C)))
+        self.joined: Dict[int, int] = {i: 0 for i in self.objective}
+        self.departed: set = set()
+        self.lr_shift_tau = 0
+        self.rb_tau0 = np.zeros(capacity, np.int32)
+        self.rb_boost = np.ones(capacity, np.float32)
+        self.reboots: List[RebootState] = (reboots if reboots is not None
+                                           else [])
+
+        self.queue: List[Tuple[int, int, ParticipationEvent]] = []
+        self.seq = 0
+        self.next_tau = 0
+        self.events_applied = 0
+
+    # -- queue ---------------------------------------------------------------
+    def push(self, *events: ParticipationEvent) -> None:
+        """Enqueue participation events (any order, any time)."""
+        for e in events:
+            heapq.heappush(self.queue, (e.tau, self.seq, e))
+            self.seq += 1
+
+    @property
+    def pending(self) -> int:
+        return len(self.queue)
+
+    def due(self, tau: int) -> bool:
+        return bool(self.queue) and self.queue[0][0] <= tau
+
+    def pop_event(self) -> ParticipationEvent:
+        return heapq.heappop(self.queue)[2]
+
+    # -- membership ----------------------------------------------------------
+    def active(self, i: int, tau: int) -> bool:
+        return (i in self.objective and i not in self.departed
+                and self.joined.get(i, tau + 1) <= tau)
+
+    def register(self, client: Client) -> int:
+        self.clients.append(client)
+        return len(self.clients) - 1
+
+    def _alloc_slot(self, i: int) -> int:
+        if not self.free_slots:
+            raise RuntimeError(
+                f"engine capacity {self.capacity} exhausted: no free slot "
+                f"for arriving client {i} (build the engine with a larger "
+                f"capacity=)")
+        slot = heapq.heappop(self.free_slots)
+        self.slot_of[i] = slot
+        self.client_at[slot] = i
+        return slot
+
+    def _free_slot(self, i: int, actions: List[SlotAction]) -> None:
+        slot = self.slot_of.pop(i, None)
+        if slot is None:
+            return
+        del self.client_at[slot]
+        self.rb_tau0[slot] = 0
+        self.rb_boost[slot] = 1.0
+        heapq.heappush(self.free_slots, slot)
+        actions.append(("evict", slot))
+
+    # -- event application ---------------------------------------------------
+    def apply(self, e: ParticipationEvent,
+              tau: int) -> Tuple[str, List[SlotAction]]:
+        """Apply one event at round tau.  Mutates host bookkeeping only;
+        returns (event-log string, engine actions)."""
+        actions: List[SlotAction] = []
+        if isinstance(e, Arrival):
+            if e.client is not None:
+                i = self.register(e.client)
+                actions.append(("admit", self._alloc_slot(i), i))
+            else:
+                i = e.client_id
+                if i is None or not 0 <= i < len(self.clients):
+                    raise ValueError(f"Arrival without client needs a "
+                                     f"registered client_id, got {i!r}")
+                if i not in self.slot_of:
+                    actions.append(("admit", self._alloc_slot(i), i))
+            if i in self.objective:
+                if i not in self.departed:
+                    return "", actions          # duplicate arrival: no-op
+                # rejoin of an include-departed device: the objective
+                # never shifted, so no LR restart / reboot boost
+                self.departed.discard(i)
+                self.joined[i] = tau
+                return f"rejoin:{i};", actions
+            self.objective.add(i)
+            self.joined[i] = tau
+            self.departed.discard(i)
+            self.lr_shift_tau = tau
+            fast = self.fast_reboot if e.fast_reboot is None else \
+                e.fast_reboot
+            if fast:
+                self.reboots.append(RebootState(tau, i, self.reboot_boost))
+                slot = self.slot_of[i]
+                self.rb_tau0[slot] = tau
+                self.rb_boost[slot] = self.reboot_boost
+            return f"arrival:{i};", actions
+
+        if isinstance(e, Departure):
+            i = e.client_id
+            if i not in self.objective or i in self.departed:
+                return "", actions              # duplicate/unknown: no-op
+            cl = self.clients[i]
+            policy = e.policy or cl.departure_policy
+            if policy == "auto":
+                # Corollary 4.0.3: exclude iff enough training remains
+                T = self.horizon if self.horizon is not None else tau + 100
+                policy = "exclude" if should_exclude(
+                    T, tau, self.bound_terms, cl.gamma_l) else "include"
+            self.departed.add(i)
+            self._free_slot(i, actions)
+            if policy == "exclude":
+                self.objective.discard(i)
+                self.lr_shift_tau = tau
+                return f"departure-exclude:{i};", actions
+            return f"departure-include:{i};", actions
+
+        raise TypeError(f"unknown participation event {e!r}")
+
+    # -- span arguments (host-side, numpy) ------------------------------------
+    def data_weights(self) -> np.ndarray:
+        """Slot-indexed data weights p over the current objective.  An
+        include-departed client keeps its mass in the normalization but
+        holds no slot, so its column never appears."""
+        p = np.zeros(self.capacity)
+        total = sum(self.clients[i].n for i in self.objective)
+        for i in self.objective:
+            slot = self.slot_of.get(i)
+            if slot is not None:
+                p[slot] = self.clients[i].n / total
+        return p
+
+    def span_args(self) -> dict:
+        return dict(p=self.data_weights().astype(np.float32),
+                    lr_shift_tau=self.lr_shift_tau,
+                    reboot_tau0=self.rb_tau0.copy(),
+                    reboot_boost=self.rb_boost.copy())
+
+    def span_end(self, tau: int, stop: int, ev: str,
+                 eval_every: int) -> int:
+        """Largest t <= stop such that [tau, t) has fixed membership and
+        at most one eval, which lands on the final round of the span."""
+        end = stop
+        if self.queue:
+            end = min(end, max(self.queue[0][0], tau + 1))
+        if ev:
+            return tau + 1      # event round: evaluate right after it
+        next_eval = tau + ((-tau) % eval_every)
+        if next_eval < end:
+            end = next_eval + 1
+        return end
+
+    # -- plan-mode sampling (seed RNG draw order) -----------------------------
+    def sample_plan(self, tau: int, E: int, B: int):
+        """One round of host-RNG sampling in the seed draw order: alpha
+        (capacity, E) and batch indices (capacity, E, B)."""
+        alpha = np.zeros((self.capacity, E), np.float32)
+        idx = np.zeros((self.capacity, E, B), np.int64)
+        for slot in range(self.capacity):
+            i = self.client_at.get(slot)
+            if i is None or not self.active(i, tau):
+                continue
+            cl = self.clients[i]
+            alpha[slot] = (np.arange(E)
+                           < cl.trace.sample_s(self.rng, E)
+                           ).astype(np.float32)
+            idx[slot] = self.rng.integers(0, cl.n, size=(E, B))
+        return alpha, idx

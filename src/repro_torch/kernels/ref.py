@@ -1,0 +1,8 @@
+"""Plain PyTorch oracles of the port's kernels, under the names of the
+reference's ``repro/kernels/ref.py``: each is the plain version kept
+beside its kernel, the allclose target of the kernel on the card."""
+from repro_torch.kernels.masked_sgd import masked_sgd_plain as masked_sgd_ref
+from repro_torch.kernels.weighted_agg import \
+    weighted_agg_plain as weighted_agg_ref
+
+__all__ = ["weighted_agg_ref", "masked_sgd_ref"]

@@ -1,0 +1,55 @@
+"""Parameters across the two packages: the reference's layout <-> the port's.
+
+The reference's CNN keeps HWIO conv weights and ``w1`` rows in the NHWC
+flatten order (row, col, channel); the port keeps OIHW conv weights and
+``w1`` rows in NCHW order (channel, row, col), so its forward pass runs in
+PyTorch's native layout with no per-call permute.  These two functions own
+that conversion; logistic regression and the MLP share one layout and pass
+through unchanged.  Both sides are plain arrays: the port never imports
+the reference.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.paper import PaperModelConfig
+from repro_torch.device import resolve_device
+
+_POOLED = (7, 7, 64)      # the CNN's last activation, (row, col, channel)
+
+
+def from_jax(params: Dict[str, np.ndarray], cfg: PaperModelConfig,
+             device=None) -> Dict[str, torch.Tensor]:
+    """The reference's parameter dict (numpy arrays, or anything
+    ``np.asarray`` takes) -> the port's tensors on ``device``."""
+    device = resolve_device(device)
+    out = {}
+    for name, a in params.items():
+        a = np.asarray(a)
+        if cfg.kind == "cnn" and name in ("c1", "c2"):
+            a = a.transpose(3, 2, 0, 1)                # HWIO -> OIHW
+        elif cfg.kind == "cnn" and name == "w1":
+            a = a.reshape(*_POOLED, -1).transpose(2, 0, 1, 3).reshape(
+                a.shape)                               # rows HWC -> CHW
+        out[name] = torch.tensor(a, device=device)
+    return out
+
+
+def to_numpy(params: Dict[str, torch.Tensor],
+             cfg: PaperModelConfig) -> Dict[str, np.ndarray]:
+    """The port's parameters (or gradients, which share their layout) ->
+    the reference's layout as numpy arrays."""
+    out = {}
+    for name, t in params.items():
+        a = t.detach().cpu().numpy()
+        if cfg.kind == "cnn" and name in ("c1", "c2"):
+            a = a.transpose(2, 3, 1, 0)                # OIHW -> HWIO
+        elif cfg.kind == "cnn" and name == "w1":
+            c, h, w = _POOLED[2], _POOLED[0], _POOLED[1]
+            a = a.reshape(c, h, w, -1).transpose(1, 2, 0, 3).reshape(
+                a.shape)                               # rows CHW -> HWC
+        out[name] = np.ascontiguousarray(a)
+    return out

@@ -20,6 +20,10 @@ def pytest_configure(config):
         "fuzz: seeded-corpus fuzz/validation tests; corpus size scales "
         "with REPRO_FUZZ_SEEDS (default 30; benchmarks/run.py --full "
         "drives the 128-seed nightly tier)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and nvcc; skips where there is none "
+        "(on the card: python -m pytest -m cuda tests/test_torch_cuda.py)")
 
 
 try:  # pragma: no cover - exercised only when hypothesis is installed

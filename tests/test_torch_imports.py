@@ -1,0 +1,74 @@
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
+imports jax or the reference package, and its entry points refuse to run
+without a CUDA device unless the CPU is asked for."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax_or_reference():
+    out = subprocess.run([sys.executable, "-c", IMPORT_ALL],
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20     # every module was reached
+
+
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
+                       re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_names_jax_or_reference(path):
+    assert not FORBIDDEN.findall(path.read_text()), path
+
+
+def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.configs.paper import SYNTHETIC_LR
+    from repro_torch.core.participation import TRACES
+    from repro_torch.fed import Client, FederatedTrainer, RoundEngine
+    from repro_torch.models.small import init_small, make_loss_fn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_small(SYNTHETIC_LR)
+    params = init_small(SYNTHETIC_LR, device="cpu")
+    clients = [Client(x=np.zeros((4, 60), np.float32),
+                      y=np.zeros(4, np.int32), trace=TRACES[0])]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FederatedTrainer(loss_fn=make_loss_fn(SYNTHETIC_LR),
+                         init_params=params, clients=clients)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RoundEngine(loss_fn=make_loss_fn(SYNTHETIC_LR), clients=clients,
+                    local_epochs=2, batch_size=2)
+    # asked for, the CPU runs
+    FederatedTrainer(loss_fn=make_loss_fn(SYNTHETIC_LR), init_params=params,
+                     clients=clients, device="cpu")
