@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's federated round on one CUDA card.
+"""Drive the PyTorch/CUDA port's two paths on one CUDA card: the federated
+round and LM serving.
 
     python3 chip_smoke.py
 
@@ -10,13 +11,23 @@ it, and nothing of JAX or of the JAX package.  In order it
    torch and CUDA versions and the two TF32 flags;
 2. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes, at the tolerances of ``repro_torch.kernels.ops``;
-4. drives the main path, ``FederatedTrainer(engine="plan")`` on the EMNIST
-   CNN at full width with 62 clients, through one late arrival and one
-   excluding departure; checks each kernel's launch count, finite eval
+   paths' shapes (and, for flash_attention, at edge shapes that take other
+   code), at the tolerances of ``repro_torch.kernels.ops``;
+4. drives the federated round, ``FederatedTrainer(engine="plan")`` on the
+   EMNIST CNN at full width with 62 clients, through one late arrival and
+   one excluding departure; checks each kernel's launch count, finite eval
    losses, and the card's parameters against the port's plain path (the
    same trainer on the CPU); then times warm rounds and profiles two;
-5. times each kernel beside its bound, its plain version and the one
+5. serves nemotron-4-15b at full width in bf16 with
+   ``attn_impl="flash"`` through ``repro_torch.launch.serve.serve``: a
+   batch of 4 prompts of 4,096 tokens, then 32 decode steps; checks
+   flash_attention's launches (one per layer per prefill, none per decode
+   step), finite logits, the prefill's logits against the chunked
+   attention path on the same weights, and the reduced config in f32 on
+   the card against the port's plain path on the CPU; prints prefill
+   tokens/s, decode ms/step and the memory high-water mark, and profiles a
+   prefill and four decode steps;
+6. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function, and prints them as one
    ``{"kernels": [...]}`` line.
 
@@ -25,6 +36,7 @@ Any failure raises and the script exits nonzero.  The last line,
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -37,10 +49,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA's data sheet): device memory and f32 outside the
-# tensor cores; both kernels work in f32 on the CUDA cores
+# H100 SXM peaks (NVIDIA's data sheet): device memory, f32 outside the
+# tensor cores (weighted_agg and masked_sgd), dense bf16 on the tensor cores
+# (flash_attention at the serving shape)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 N_CLIENTS = 62          # EMNIST_CNN.n_devices
 ROUNDS = 6              # main path: arrival at TAU_ARRIVE, departure at
@@ -54,6 +68,40 @@ NO_EVAL = 10 ** 9
 # (cuDNN and cuBLAS against the CPU's convolutions and matmuls)
 PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-5
+
+ARCH = "nemotron-4-15b"
+SERVE_BATCH = 4         # the serving path: 4 prompts of 4,096 tokens, then
+PROMPT_LEN = 4096       # 32 decode steps, at full width in bf16
+GEN = 32
+WARM_STEPS = 8          # decode steps timed again once warm
+# flash_attention at the serving prefill's shape: (B, H, KV, S, hd)
+FLASH_MAIN = (SERVE_BATCH, 48, 8, PROMPT_LEN, 128)
+# edge shapes that take other code: (B, H, KV, S, hd, dtype, causal)
+FLASH_EDGES = [
+    (2, 4, 2, 100, 128, torch.bfloat16, True),   # keys past S masked
+    (2, 4, 2, 100, 32, torch.float32, True),     # the same in f32, hd 32
+    (2, 8, 8, 256, 32, torch.bfloat16, True),    # hd 32 on the tensor cores
+    (1, 8, 2, 1000, 64, torch.bfloat16, False),  # hd 64, non-causal
+    (1, 8, 2, 1000, 64, torch.float32, False),
+    (1, 4, 1, 384, 128, torch.bfloat16, True),   # MQA (one KV head)
+    (1, 4, 1, 384, 128, torch.float32, False),
+]
+# prefill logits with attn_impl="flash" against "chunked", same weights and
+# prompts, both in bf16.  The two attention paths round differently (the
+# kernel rounds the unnormalised probabilities to bf16 and divides at the
+# end, the chunked path rounds the normalised ones): their outputs differ
+# by at most an ulp of bf16 on some elements, in every layer, and the 32
+# bf16 layers after each carry and amplify that to the logits.  The bound
+# is that amplification measured in the same run: the chunked path again
+# with every layer's attention output re-rounded (each element times
+# 1 + u*2^-7, u uniform in [-1, 1), then rounded to bf16: one or two ulps of
+# bf16 noise on most elements, more than the kernel's difference) gives the
+# logits' bf16 noise floor, and flash against chunked must stay within
+# FLOOR_FACTOR times it, in max abs error and in relative norm.
+FLOOR_FACTOR = 2.0
+# the reduced config in f32 on the card against the port's plain path on
+# the CPU: f32 in other summation orders (the kernel's f32 path, cuBLAS)
+REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def log(*args) -> None:
@@ -140,6 +188,36 @@ def check_masked_sgd(dev, leaves) -> float:
     return worst
 
 
+def _qkv(dev, gen, B, H, KV, S, hd, dtype):
+    """q, k, v in the model's layout: transposed views of (B, S, heads, hd)
+    projections, as ``gqa_attention`` hands them to the kernel."""
+    return [torch.randn(B, S, n, hd, device=dev, generator=gen).to(dtype)
+            .transpose(1, 2) for n in (H, KV, KV)]
+
+
+def check_flash_attention(dev) -> float:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = 0.0
+    for B, H, KV, S, hd, dtype, causal in \
+            [(*FLASH_MAIN, torch.bfloat16, True)] + FLASH_EDGES:
+        q, k, v = _qkv(dev, gen, B, H, KV, S, hd, dtype)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        tol = ops.TOLERANCE["flash_attention"][dtype]
+        err = max_abs_err(got, want)
+        log(f"  flash_attention B={B} H={H} KV={KV} S={S} hd={hd} {dtype} "
+            f"causal={causal}: max_abs_err {err:.3e} (rtol {tol['rtol']:g}, "
+            f"atol {tol['atol']:g})")
+        torch.testing.assert_close(got, want, **tol)
+        worst = max(worst, err)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
 # -- 4. the main path -----------------------------------------------------------
 def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
     """The paper's EMNIST federation, synthetic and seeded: label-sorted
@@ -217,8 +295,8 @@ def compare_with_plain(card, plain) -> float:
     return worst
 
 
-def profile_rounds(trainer, n: int) -> None:
-    """Kernel time by name over n warm rounds, and the card's busy share:
+def profile_card(label: str, fn) -> None:
+    """Kernel time by name over one call of fn, and the card's busy share:
     the union of kernel intervals over the host's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -226,15 +304,15 @@ def profile_rounds(trainer, n: int) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run(n, eval_every=NO_EVAL)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         # the profile only reports where the time goes; the phases above
         # hold the path and the kernels
-        log(f"  profile of {n} warm rounds: the profiler recorded no kernel "
-            f"on the card, no breakdown")
+        log(f"  profile of {label}: the profiler recorded no kernel on the "
+            f"card, no breakdown")
         return
     by_name = {}
     for e in kernels:
@@ -246,7 +324,7 @@ def profile_rounds(trainer, n: int) -> None:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     total = sum(t for t, _ in by_name.values())
-    log(f"  profile of {n} warm rounds: wall {wall_us / 1e3:.3f} ms under "
+    log(f"  profile of {label}: wall {wall_us / 1e3:.3f} ms under "
         f"the profiler, kernels {total / 1e3:.3f} ms summed, "
         f"{busy / 1e3:.3f} ms busy ({100 * busy / wall_us:.1f}% of wall)")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -272,7 +350,8 @@ def main_path(dev):
     for h in trainer.history:
         log(f"  tau={h.tau} loss={h.loss:.6f} acc={h.acc:.4f} eta={h.eta:.3e} "
             f"n_active={h.n_active} event={h.event!r}")
-    want = {"weighted_agg": ROUNDS, "masked_sgd": ROUNDS * n_leaves * E}
+    want = {"weighted_agg": ROUNDS, "masked_sgd": ROUNDS * n_leaves * E,
+            "flash_attention": 0}
     log(f"  launches {launches}, expected {want} (weighted_agg 1 per round, "
         f"masked_sgd {n_leaves} leaves x E={E} per round)")
     if launches != want:
@@ -297,11 +376,183 @@ def main_path(dev):
     log(f"  rounds/s: {ROUNDS / cold_s:.3f} over the first {ROUNDS} rounds "
         f"(eval and first calls included), {WARM_ROUNDS / warm_s:.3f} over "
         f"{WARM_ROUNDS} warm rounds without eval")
-    profile_rounds(trainer, PROFILED_ROUNDS)
+    profile_card(f"{PROFILED_ROUNDS} warm rounds",
+                 lambda: trainer.run(PROFILED_ROUNDS, eval_every=NO_EVAL))
     return trainer, launches
 
 
-# -- 5. timing ----------------------------------------------------------------
+# -- 5. LM serving ------------------------------------------------------------
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _prefill_then_decode(params, cfg, tokens, n_decode: int, dev):
+    """Prefill all but the last n_decode tokens, then decode those
+    teacher-forced; the logits of every step."""
+    from repro_torch.models import transformer
+    B, S = tokens.shape
+    Sp = S - n_decode
+    cache = transformer.init_cache(cfg, B, S, dev)
+    lg, cache = transformer.prefill(params, cfg, tokens[:, :Sp], cache)
+    out = [lg]
+    for t in range(Sp, S):
+        lg, cache = transformer.decode_step(params, cfg, cache,
+                                            tokens[:, t:t + 1], t)
+        out.append(lg)
+    return out
+
+
+def check_reduced_against_cpu(dev) -> float:
+    """The reduced config in f32 with attn_impl="flash": prefill and four
+    teacher-forced decode steps on the card against the same on the CPU
+    (the port's plain path), the same weights and tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), attn_impl="flash")
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(0))
+    plain = _prefill_then_decode(params, cfg, tokens, 4, torch.device("cpu"))
+    card = _prefill_then_decode(_to(params, dev), cfg, tokens.to(dev), 4, dev)
+    worst = 0.0
+    for a, b in zip(card, plain, strict=True):
+        worst = max(worst, max_abs_err(a.cpu(), b))
+        torch.testing.assert_close(a.cpu(), b, **REDUCED_TOL)
+    log(f"  reduced config in f32 (prefill 60 + 4 decode steps, flash) on "
+        f"the card against the CPU: logits max_abs_err {worst:.3e} (rtol "
+        f"{REDUCED_TOL['rtol']:g}, atol {REDUCED_TOL['atol']:g})")
+    return worst
+
+
+def serve_path(dev):
+    """nemotron-4-15b at full width, bf16, through ``serve``: returns the
+    kernels' launch counts over that run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, param_count
+    cfg = dataclasses.replace(get_config(ARCH), attn_impl="flash")
+    B, S = SERVE_BATCH, PROMPT_LEN
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"serving path: {cfg.name} at full width, {param_count(params):,} "
+        f"{cfg.dtype} params drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; attn_impl={cfg.attn_impl}, "
+        f"batch {B}, prompt {S}, {GEN} decode steps")
+
+    ops.reset_launches()
+    out = serve(cfg, batch=B, prompt_len=S, gen=GEN, seed=0, device=dev,
+                params=params)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"weighted_agg": 0, "masked_sgd": 0,
+            "flash_attention": cfg.n_layers}
+    log(f"  launches {launches}, expected {want} (flash_attention one per "
+        f"layer per prefill, none per decode step)")
+    if launches != want:
+        raise RuntimeError(f"launch counts {launches} != expected {want}")
+    for name in ("prefill_logits", "logits"):
+        if not bool(torch.isfinite(out[name]).all()):
+            raise RuntimeError(f"non-finite {name} on the serving path")
+    if out["prefill_logits"].shape != (B, 1, cfg.vocab) or \
+            out["tokens"].shape != (B, GEN):
+        raise RuntimeError(f"prefill logits shaped "
+                           f"{tuple(out['prefill_logits'].shape)}, tokens "
+                           f"{tuple(out['tokens'].shape)}")
+    log(f"  prefill {B}x{S}: {out['prefill_s']:.3f} s, "
+        f"{B * S / out['prefill_s']:.1f} tokens/s; decode {GEN} steps: "
+        f"{out['decode_s'] / GEN * 1e3:.3f} ms/step, "
+        f"{B * GEN / out['decode_s']:.1f} tokens/s; memory high-water mark "
+        f"{peak / 2**30:.2f} GiB; sampled ids (seq 0) "
+        f"{out['tokens'][0, :8].tolist()}")
+
+    # a decode step on its own launches no flash_attention: the last step
+    # again, at its position with its token, which rewrites the same slot
+    ops.reset_launches()
+    lg, _ = transformer.decode_step(params, cfg, out["cache"],
+                                    out["tokens"][:, -1:], S + GEN - 1)
+    torch.cuda.synchronize()
+    if ops.launches["flash_attention"] != 0:
+        raise RuntimeError(f"a decode step launched flash_attention "
+                           f"{ops.launches['flash_attention']} times")
+
+    prompts, cache = out["prompts"], out["cache"]
+    tok, flash = out["tokens"][:, :1], out["prefill_logits"]
+    del out, lg
+    # serve's numbers include the first calls' allocations; once more warm
+    t0 = time.perf_counter()
+    transformer.prefill(params, cfg, prompts, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(WARM_STEPS):
+        transformer.decode_step(params, cfg, cache, tok, S + i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / WARM_STEPS
+    log(f"  warm: prefill {prefill_s:.3f} s, {B * S / prefill_s:.1f} "
+        f"tokens/s; decode {step_s * 1e3:.3f} ms/step over {WARM_STEPS} "
+        f"steps, {B / step_s:.1f} tokens/s")
+    profile_card(f"one prefill {B}x{S}",
+                 lambda: transformer.prefill(params, cfg, prompts, cache))
+
+    def four_steps():
+        for i in range(4):
+            transformer.decode_step(params, cfg, cache, tok, S + i)
+    profile_card("4 decode steps", four_steps)
+
+    compare_with_chunked(params, cfg, prompts, cache, flash)
+    del params, cache
+    torch.cuda.empty_cache()
+    check_reduced_against_cpu(dev)
+    return launches
+
+
+def compare_with_chunked(params, cfg, prompts, cache, flash) -> None:
+    """The flash prefill's logits against the chunked attention path's on
+    the same weights and prompts, within FLOOR_FACTOR of the bf16 noise
+    floor measured here (see FLOOR_FACTOR)."""
+    from repro_torch.models import attention, transformer
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    t0 = time.perf_counter()
+    lg_c, _ = transformer.prefill(params, chunked, prompts, cache)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+
+    plain_attention = attention.causal_attention
+    gen = torch.Generator(device=flash.device).manual_seed(6)
+
+    def rerounded(*args, **kwargs):
+        o = plain_attention(*args, **kwargs)
+        u = 2 * torch.rand(o.shape, generator=gen, device=o.device) - 1
+        return (o.float() * (1 + u * 2.0 ** -7)).to(o.dtype)
+
+    attention.causal_attention = rerounded
+    try:
+        lg_n, _ = transformer.prefill(params, chunked, prompts, cache)
+    finally:
+        attention.causal_attention = plain_attention
+
+    def rel(a):
+        return ((a - lg_c).norm() / lg_c.norm()).item()
+    err, floor = max_abs_err(flash, lg_c), max_abs_err(lg_n, lg_c)
+    log(f"  prefill logits (std {lg_c.std().item():.3f}), flash against "
+        f"chunked attention (chunked prefill {chunked_s:.3f} s): "
+        f"max_abs_err {err:.3e}, relative norm {rel(flash):.3e}; bf16 noise "
+        f"floor (chunked, attention re-rounded): max_abs_err {floor:.3e}, "
+        f"relative norm {rel(lg_n):.3e}; bound {FLOOR_FACTOR:g}x the floor")
+    if not (err <= FLOOR_FACTOR * floor
+            and rel(flash) <= FLOOR_FACTOR * rel(lg_n)):
+        raise RuntimeError("flash prefill logits differ from the chunked "
+                           "path's by more than the bf16 noise floor allows")
+
+
+# -- 6. timing ----------------------------------------------------------------
 def device_ms(fn, n: int) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for a few tens of ms, so the
@@ -321,9 +572,9 @@ def device_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound_ms(n_bytes: float, f32_ops: float):
+def bound_ms(n_bytes: float, ops: float, ops_per_s: float = F32_FLOPS_PER_S):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = f32_ops / F32_FLOPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
         "operations"
 
@@ -378,6 +629,32 @@ def time_masked_sgd(dev, leaves):
                 library_ms=library)
 
 
+def time_flash_attention(dev):
+    """The serving prefill's attention: one layer's q, k, v in the model's
+    layout, bf16, causal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, H, KV, S, hd = FLASH_MAIN
+    q, k, v = _qkv(dev, gen, B, H, KV, S, hd, torch.bfloat16)
+    kernel = device_ms(lambda: fa.launch(q, k, v), 20)
+    plain = device_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+    library = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    # the (query, key) pairs causal masking keeps, two hd-long products
+    # each; q, k, v read once and o written once in bf16
+    flops = 4.0 * B * H * hd * S * (S + 1) / 2
+    n_bytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+    bound, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+    log(f"  flash_attention, q ({B}, {H}, {S}, {hd}), k, v ({B}, {KV}, {S}, "
+        f"{hd}) bf16, causal: kernel {kernel:.3f} ms "
+        f"({flops / kernel / 1e9:.1f} TFLOP/s), bound {bound:.3f} ms by "
+        f"{by}, plain {plain:.3f} ms, scaled_dot_product_attention("
+        f"is_causal=True, enable_gqa=True) {library:.3f} ms")
+    return dict(ms=kernel, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=library)
+
+
 def main() -> None:
     import_port()
     if not torch.cuda.is_available():
@@ -415,12 +692,15 @@ def main() -> None:
     log("kernels against their plain versions on the card:")
     agg_err = check_weighted_agg(dev, D)
     sgd_err = check_masked_sgd(dev, leaves)
+    flash_err = check_flash_attention(dev)
 
     _, launches = main_path(dev)
+    serve_launches = serve_path(dev)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)
     sgd_t = time_masked_sgd(dev, leaves)
+    flash_t = time_flash_attention(dev)
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
         dict(name="weighted_agg", route="cuda",
@@ -430,6 +710,11 @@ def main() -> None:
         dict(name="masked_sgd", route="cuda", source=f"{csrc}/masked_sgd.cu",
              replaces="src/repro/kernels/masked_sgd.py:26",
              launches=launches["masked_sgd"], max_abs_err=sgd_err, **sgd_t),
+        dict(name="flash_attention", route="cuda",
+             source=f"{csrc}/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:64",
+             launches=serve_launches["flash_attention"],
+             max_abs_err=flash_err, **flash_t),
     ]
     log(card)
     log(json.dumps({"kernels": rows}))

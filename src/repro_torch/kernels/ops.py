@@ -9,8 +9,8 @@ wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels.  ``TOLERANCE`` holds the
 tolerance of each kernel, per dtype of its data, against its plain version
 on the card and against the reference's Pallas kernel in the CPU tests
-(the reference suite's own values, ``tests/test_kernels.py:22-23`` and
-``:36``); ``chip_smoke.py`` and the tests read both from here.
+(the reference suite's own values, ``tests/test_kernels.py:22-23``, ``:36``
+and ``:195-196``); ``chip_smoke.py`` and the tests read both from here.
 """
 from __future__ import annotations
 
@@ -18,16 +18,20 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import masked_sgd as _sgd
 from repro_torch.kernels import weighted_agg as _agg
 
-launches: Dict[str, int] = {"weighted_agg": 0, "masked_sgd": 0}
+launches: Dict[str, int] = {"weighted_agg": 0, "masked_sgd": 0,
+                            "flash_attention": 0}
 
 TOLERANCE = {
     "weighted_agg": {torch.float32: dict(rtol=1e-6, atol=1e-5),
                      torch.bfloat16: dict(rtol=2e-2, atol=1e-5)},
     "masked_sgd": {torch.float32: dict(rtol=1e-5, atol=1e-5),
                    torch.bfloat16: dict(rtol=2e-2, atol=1e-5)},
+    "flash_attention": {torch.float32: dict(rtol=2e-5, atol=1e-5),
+                        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)},
 }
 
 
@@ -64,4 +68,18 @@ def masked_sgd(w: torch.Tensor, g: torch.Tensor,
         return _sgd.masked_sgd_plain(w, g, scale)
     out = _sgd.launch(w, g, scale)
     launches["masked_sgd"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, H, S, hd), k and v (B, KV, S, hd), f32 or bf16, H a multiple
+    of KV (query head h reads KV head h // (H / KV)), hd 32, 64 or 128 ->
+    (B, H, S, hd) softmax attention in q's dtype, scaled by 1/sqrt(hd),
+    causal unless asked otherwise."""
+    _flash.check_args(q, k, v)
+    if not _on_card(q, "flash_attention"):
+        return _flash.flash_attention_plain(q, k, v, causal)
+    out = _flash.launch(q, k, v, causal)
+    launches["flash_attention"] += 1
     return out

@@ -1,8 +1,10 @@
 """Plain PyTorch oracles of the port's kernels, under the names of the
 reference's ``repro/kernels/ref.py``: each is the plain version kept
 beside its kernel, the allclose target of the kernel on the card."""
+from repro_torch.kernels.flash_attention import \
+    flash_attention_plain as flash_attention_ref
 from repro_torch.kernels.masked_sgd import masked_sgd_plain as masked_sgd_ref
 from repro_torch.kernels.weighted_agg import \
     weighted_agg_plain as weighted_agg_ref
 
-__all__ = ["weighted_agg_ref", "masked_sgd_ref"]
+__all__ = ["weighted_agg_ref", "masked_sgd_ref", "flash_attention_ref"]

@@ -1,16 +1,23 @@
 """Parameters across the two packages: the reference's layout <-> the port's.
 
-The reference's CNN keeps HWIO conv weights and ``w1`` rows in the NHWC
-flatten order (row, col, channel); the port keeps OIHW conv weights and
-``w1`` rows in NCHW order (channel, row, col), so its forward pass runs in
-PyTorch's native layout with no per-call permute.  These two functions own
-that conversion; logistic regression and the MLP share one layout and pass
-through unchanged.  Both sides are plain arrays: the port never imports
-the reference.
+The paper models (``from_jax``, ``to_numpy``): the reference's CNN keeps
+HWIO conv weights and ``w1`` rows in the NHWC flatten order (row, col,
+channel); the port keeps OIHW conv weights and ``w1`` rows in NCHW order
+(channel, row, col), so its forward pass runs in PyTorch's native layout
+with no per-call permute.  These two functions own that conversion;
+logistic regression and the MLP share one layout and pass through
+unchanged.
+
+The LMs (``lm_from_jax``, ``lm_to_numpy``): the port keeps the reference's
+layout as it is, nested dicts with per-layer leaves stacked on a leading
+(L,) dim and head projections flattened as ``(d, H*hd)`` for ``x @ W``, so
+the two functions only move arrays across (bf16 included, bit for bit).
+
+Both sides are plain arrays: the port never imports the reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -53,3 +60,37 @@ def to_numpy(params: Dict[str, torch.Tensor],
                 a.shape)                               # rows CHW -> HWC
         out[name] = np.ascontiguousarray(a)
     return out
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(np.array(a).view(np.uint16)) \
+            .view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def lm_from_jax(params: Mapping, device=None) -> dict:
+    """The reference's LM parameter tree (nested dicts of numpy arrays, or
+    of anything ``np.asarray`` takes) -> the same tree of the port's
+    tensors on ``device``, values and layout unchanged."""
+    device = resolve_device(device)
+
+    def walk(tree):
+        if isinstance(tree, Mapping):
+            return {k: walk(v) for k, v in tree.items()}
+        return _tensor(np.asarray(tree), device)
+    return walk(params)
+
+
+def lm_to_numpy(params: Mapping) -> dict:
+    """The port's LM parameter tree -> nested dicts of numpy arrays in the
+    reference's layout.  bf16 tensors come back as f32 arrays holding the
+    same values (numpy has no bf16 of its own)."""
+    def walk(tree):
+        if isinstance(tree, Mapping):
+            return {k: walk(v) for k, v in tree.items()}
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return walk(params)

@@ -68,3 +68,83 @@ def test_weighted_agg_kernel_refuses_rows_off_16_bytes(card, shape):
     with pytest.raises(ValueError):
         ops.masked_sgd(torch.ones(5, device=card), torch.ones(5, device=card),
                        torch.ones(()))
+
+
+FLASH_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 4, 1, 384, 128),
+                (2, 2, 2, 100, 32), (1, 48, 8, 1000, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,hd", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(card, B, H, KV, S, hd, dtype,
+                                              causal):
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    gen = torch.Generator(device=card).manual_seed(B * H * S + hd)
+    q, k, v = (torch.randn(B, n, S, hd, device=card, generator=gen).to(dtype)
+               for n in (H, KV, KV))
+    before = ops.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, causal),
+                               **ops.TOLERANCE["flash_attention"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_strided_projections(card, dtype):
+    # the model's layout: (B, S, heads, hd) projections, transposed views
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    gen = torch.Generator(device=card).manual_seed(7)
+    B, S, H, KV, hd = 2, 200, 8, 2, 64
+    q = torch.randn(B, S, H, hd, device=card, generator=gen).to(dtype)
+    k = torch.randn(B, S, KV, hd, device=card, generator=gen).to(dtype)
+    v = torch.randn(B, S, KV, hd, device=card, generator=gen).to(dtype)
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2))
+    torch.testing.assert_close(got, want,
+                               **ops.TOLERANCE["flash_attention"][dtype])
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_read(card):
+    x = torch.ones(1, 2, 16, 256, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="256"):
+        ops.flash_attention(x, x, x)
+    y = torch.ones(1, 2, 16, 72, device=card, dtype=torch.bfloat16)[..., 4:68]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.flash_attention(y, y, y)
+
+
+def test_reduced_lm_prefill_on_the_card_matches_the_cpu(card):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config("nemotron-4-15b").reduced(),
+                              attn_impl="flash")
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 100),
+                           generator=torch.Generator().manual_seed(0))
+    want, _ = transformer.prefill(
+        params, cfg, tokens, transformer.init_cache(cfg, 2, 100, "cpu"))
+
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(card)
+
+    on_card = to_card(params)
+    before = ops.launches["flash_attention"]
+    got, _ = transformer.prefill(on_card, cfg, tokens.to(card),
+                                 transformer.init_cache(cfg, 2, 100, card))
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

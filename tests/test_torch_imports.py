@@ -72,3 +72,21 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     # asked for, the CPU runs
     FederatedTrainer(loss_fn=make_loss_fn(SYNTHETIC_LR), init_params=params,
                      clients=clients, device="cpu")
+
+
+def test_serving_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("nemotron-4-15b").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--gen", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.serve(cfg, gen=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_cache(cfg, 1, 8)
