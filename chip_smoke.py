@@ -9,10 +9,13 @@ it, and nothing of JAX or of the JAX package.  In order it
 
 1. prints the card (name and power limit, as nvidia-smi gives them), the
    torch and CUDA versions and the two TF32 flags;
-2. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
+2. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
+   and beside them a copy of flash_attention with a planted fault (FAULT)
+   that the checks below must catch;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes (and, for flash_attention, at edge shapes that take other
-   code), at the tolerances of ``repro_torch.kernels.ops``;
+   code), at the tolerances of ``repro_torch.kernels.ops``, and
+   flash_attention in bf16 against attention in f32 (BF16_UNIT);
 4. drives the federated round, ``FederatedTrainer(engine="plan")`` on the
    EMNIST CNN at full width with 62 clients, through one late arrival and
    one excluding departure; checks each kernel's launch count, finite eval
@@ -22,11 +25,11 @@ it, and nothing of JAX or of the JAX package.  In order it
    ``attn_impl="flash"`` through ``repro_torch.launch.serve.serve``: a
    batch of 4 prompts of 4,096 tokens, then 32 decode steps; checks
    flash_attention's launches (one per layer per prefill, none per decode
-   step), finite logits, the prefill's logits against the chunked
-   attention path on the same weights, and the reduced config in f32 on
-   the card against the port's plain path on the CPU; prints prefill
-   tokens/s, decode ms/step and the memory high-water mark, and profiles a
-   prefill and four decode steps;
+   step), finite logits, the prefill's logits and the chunked path's
+   against the same weights with attention in f32 (LOGITS_FACTOR), and the
+   reduced config in f32 on the card against the port's plain path on the
+   CPU; prints prefill tokens/s (flash and chunked), decode ms/step and the
+   memory high-water mark, and profiles a prefill and four decode steps;
 6. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function, and prints them as one
    ``{"kernels": [...]}`` line.
@@ -86,19 +89,32 @@ FLASH_EDGES = [
     (1, 4, 1, 384, 128, torch.bfloat16, True),   # MQA (one KV head)
     (1, 4, 1, 384, 128, torch.float32, False),
 ]
-# prefill logits with attn_impl="flash" against "chunked", same weights and
-# prompts, both in bf16.  The two attention paths round differently (the
-# kernel rounds the unnormalised probabilities to bf16 and divides at the
-# end, the chunked path rounds the normalised ones): their outputs differ
-# by at most an ulp of bf16 on some elements, in every layer, and the 32
-# bf16 layers after each carry and amplify that to the logits.  The bound
-# is that amplification measured in the same run: the chunked path again
-# with every layer's attention output re-rounded (each element times
-# 1 + u*2^-7, u uniform in [-1, 1), then rounded to bf16: one or two ulps of
-# bf16 noise on most elements, more than the kernel's difference) gives the
-# logits' bf16 noise floor, and flash against chunked must stay within
-# FLOOR_FACTOR times it, in max abs error and in relative norm.
-FLOOR_FACTOR = 2.0
+# flash_attention in bf16 against the same attention computed in f32
+# (flash_attention_plain on f32 copies of q, k and v).  The kernel and its
+# plain version each round every probability to bf16 (8 significant bits)
+# before its product with v, a relative error of at most 2^-8, which moves
+# an output by at most 2^-8 * A, A = sum_j p_j |v_j| (the same attention of
+# |v|); and they round every output to bf16, at most 2^-8 |o|.  So
+# |got - o32| <= 2^-8 (|o32| + A), times BF16_SLACK for f32 sums taken in
+# other orders.  At the serving shape the median |o| is a few hundredths,
+# the size of ops.TOLERANCE's atol, so that tolerance alone would pass a
+# kernel that drops keys.
+BF16_UNIT = 2.0 ** -8
+BF16_SLACK = 1.0625
+# prefill logits with attn_impl="flash" and with "chunked", same weights and
+# prompts, in bf16, against one reference: the same model with its
+# attention computed in f32 and everything else as the chunked path does
+# it.  Both paths make the same roundings, each probability and each output
+# to bf16 once per layer, so their errors against that reference are of
+# one size, carried and amplified by the layers after them; flash's may be
+# at most LOGITS_FACTOR times chunked's, in max abs error and in relative
+# norm.  A planted fault must fail both this bound and the kernel's
+# (BF16_UNIT): the bf16 kernel built with FAULT, which skips the first of
+# the KV tiles wherever a query tile sees more than one.
+LOGITS_FACTOR = 1.5
+FAULT = ("for (int kt = 0; kt < n_kt; ++kt) {\n    const int k0 = kt * BK;",
+         "for (int kt = n_kt > 1; kt < n_kt; ++kt) {\n"
+         "    const int k0 = kt * BK;")
 # the reduced config in f32 on the card against the port's plain path on
 # the CPU: f32 in other summation orders (the kernel's f32 path, cuBLAS)
 REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -195,26 +211,89 @@ def _qkv(dev, gen, B, H, KV, S, hd, dtype):
             .transpose(1, 2) for n in (H, KV, KV)]
 
 
-def check_flash_attention(dev) -> float:
-    from repro_torch.kernels import ops
+def start_planted_fault():
+    """Starts nvcc on flash_attention.cu with FAULT planted; returns the
+    library's path and the compile."""
+    from repro_torch.kernels import build
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    if text.count(FAULT[0]) != 1:
+        raise RuntimeError("the planted fault's line is not in "
+                           "flash_attention.cu once")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "flash_attention_planted_fault.cu"
+    src.write_text(text.replace(*FAULT))
+    target = src.with_name("libflash_attention_planted_fault.so")
+    return target, build.compile_source(src, target)
+
+
+def finish_planted_fault(target, proc):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import SIGNATURES
+    report = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on the planted fault:\n{report}")
+    return build.open_library(target, SIGNATURES)
+
+
+def f32_reference(q, k, v, causal):
+    """The same attention computed in f32; returns the function that
+    measures an output against it, in units of its bf16 bound (see
+    BF16_UNIT), and the median |o| and A."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o32 = flash_attention_plain(qf, kf, vf, causal)
+    bound = flash_attention_plain(qf, kf, vf.abs(), causal)
+    medians = (o32.abs().median().item(), bound.median().item())
+    bound = bound.add_(o32.abs()).mul_(BF16_UNIT)
+    del qf, kf, vf
+
+    def excess(o):
+        return ((o.float() - o32).abs_() / bound).max().item()
+    return excess, medians
+
+
+def check_flash_attention(dev, planted) -> float:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = 0.0
-    for B, H, KV, S, hd, dtype, causal in \
-            [(*FLASH_MAIN, torch.bfloat16, True)] + FLASH_EDGES:
+    main = (*FLASH_MAIN, torch.bfloat16, True)
+    for B, H, KV, S, hd, dtype, causal in [main] + FLASH_EDGES:
         q, k, v = _qkv(dev, gen, B, H, KV, S, hd, dtype)
         got = ops.flash_attention(q, k, v, causal=causal)
-        want = flash_attention_plain(q, k, v, causal)
+        want = fa.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
         tol = ops.TOLERANCE["flash_attention"][dtype]
         err = max_abs_err(got, want)
         log(f"  flash_attention B={B} H={H} KV={KV} S={S} hd={hd} {dtype} "
-            f"causal={causal}: max_abs_err {err:.3e} (rtol {tol['rtol']:g}, "
-            f"atol {tol['atol']:g})")
+            f"causal={causal}: max_abs_err {err:.3e} against the plain "
+            f"version (rtol {tol['rtol']:g}, atol {tol['atol']:g})")
         torch.testing.assert_close(got, want, **tol)
         worst = max(worst, err)
+        if dtype == torch.bfloat16:
+            excess, (med_o, med_a) = f32_reference(q, k, v, causal)
+            x_got, x_plain = excess(got), excess(want)
+            log(f"    against attention in f32 (median |o| {med_o:.3e}, "
+                f"median A {med_a:.3e}): max |o - o32| / (2^-8 (|o32| + A)) "
+                f"kernel {x_got:.4f}, plain version {x_plain:.4f}, bound "
+                f"{BF16_SLACK:g} for the kernel")
+            if x_got > BF16_SLACK:
+                raise RuntimeError("flash_attention is off its bf16 bound "
+                                   "against attention in f32")
+            if (B, H, KV, S, hd, dtype, causal) == main:
+                bad = fa.launch(q, k, v, causal, lib=planted)
+                x_bad = excess(bad)
+                tol_ok = torch.allclose(bad.float(), want.float(), **tol)
+                log(f"    planted fault (first KV tile skipped): {x_bad:.4f} "
+                    f"of the bound; {'within' if tol_ok else 'outside'} "
+                    f"ops.TOLERANCE against the plain version")
+                if x_bad <= BF16_SLACK:
+                    raise RuntimeError("the bf16 bound does not see the "
+                                       "planted fault")
+                del bad
+            del excess
         del q, k, v, got, want
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -426,7 +505,7 @@ def check_reduced_against_cpu(dev) -> float:
     return worst
 
 
-def serve_path(dev):
+def serve_path(dev, planted):
     """nemotron-4-15b at full width, bf16, through ``serve``: returns the
     kernels' launch counts over that run."""
     from repro_torch.configs import get_config
@@ -506,50 +585,92 @@ def serve_path(dev):
             transformer.decode_step(params, cfg, cache, tok, S + i)
     profile_card("4 decode steps", four_steps)
 
-    compare_with_chunked(params, cfg, prompts, cache, flash)
+    chunked_s = compare_with_chunked(params, cfg, prompts, cache, flash,
+                                     planted)
+    log(f"  warm prefill {B}x{S} with attn_impl=\"chunked\": {chunked_s:.3f} "
+        f"s, {B * S / chunked_s:.1f} tokens/s (flash: {prefill_s:.3f} s)")
     del params, cache
     torch.cuda.empty_cache()
     check_reduced_against_cpu(dev)
     return launches
 
 
-def compare_with_chunked(params, cfg, prompts, cache, flash) -> None:
-    """The flash prefill's logits against the chunked attention path's on
-    the same weights and prompts, within FLOOR_FACTOR of the bf16 noise
-    floor measured here (see FLOOR_FACTOR)."""
-    from repro_torch.models import attention, transformer
-    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+def prefill_logits(params, cfg, tokens, attend):
+    """The prefill's last-position logits computed layer by layer from the
+    port's building blocks, with ``attend(q, k, v)`` ((B, S, heads, hd) ->
+    (B, S, H, hd)) as each layer's attention: with ``causal_attention``,
+    the chunked path's own arithmetic, step for step."""
+    from repro_torch.models.attention import gqa_project_qkv
+    from repro_torch.models.common import apply_norm, mlp_apply
+    from repro_torch.models.transformer import embed_tokens, logits_fn
+    if cfg.parallel_residual:
+        raise NotImplementedError("sequential residual blocks only")
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)
+    x = embed_tokens(params, cfg, tokens, positions)
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        p = {name: {k: t[i] for k, t in sub.items()}
+             for name, sub in blocks.items()}
+        q, k, v = gqa_project_qkv(p["attn"], apply_norm(x, p["ln1"], cfg),
+                                  cfg, positions)
+        a = attend(q, k, v).reshape(B, S, -1) @ p["attn"]["wo"]
+        if "bo" in p["attn"]:
+            a = a + p["attn"]["bo"]
+        x = x + a
+        x = x + mlp_apply(p["mlp"], apply_norm(x, p["ln2"], cfg), cfg)
+    x = apply_norm(x, params["final_norm"], cfg)
+    return logits_fn(params, cfg, x[:, -1:])[..., : cfg.vocab]
+
+
+def compare_with_chunked(params, cfg, prompts, cache, flash, planted):
+    """The flash prefill's logits and the chunked path's, on the same
+    weights and prompts, against attention in f32 (see LOGITS_FACTOR); the
+    planted fault must fail the same bound.  Returns the chunked prefill's
+    time, warm."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.models.attention import causal_attention
+    chunked_cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    chunked, _ = transformer.prefill(params, chunked_cfg, prompts, cache)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg_c, _ = transformer.prefill(params, chunked, prompts, cache)
+    transformer.prefill(params, chunked_cfg, prompts, cache)
     torch.cuda.synchronize()
     chunked_s = time.perf_counter() - t0
 
-    plain_attention = attention.causal_attention
-    gen = torch.Generator(device=flash.device).manual_seed(6)
+    same = prefill_logits(params, cfg, prompts, causal_attention)
+    if not torch.equal(same, chunked):
+        raise RuntimeError(f"the layer-by-layer prefill is "
+                           f"{max_abs_err(same, chunked):.3e} off the "
+                           f"chunked path's")
+    ref = prefill_logits(params, cfg, prompts, lambda q, k, v: (
+        causal_attention(q.float(), k.float(), v.float()).to(q.dtype)))
+    bad = prefill_logits(params, cfg, prompts, lambda q, k, v: fa.launch(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        lib=planted).transpose(1, 2))
 
-    def rerounded(*args, **kwargs):
-        o = plain_attention(*args, **kwargs)
-        u = 2 * torch.rand(o.shape, generator=gen, device=o.device) - 1
-        return (o.float() * (1 + u * 2.0 ** -7)).to(o.dtype)
+    def errors(lg):
+        return max_abs_err(lg, ref), ((lg - ref).norm() / ref.norm()).item()
+    e_flash, e_chunked, e_bad = errors(flash), errors(chunked), errors(bad)
+    bound = [LOGITS_FACTOR * e for e in e_chunked]
+    log(f"  prefill logits (std {ref.std().item():.3f}) against the model "
+        f"with attention in f32, max_abs_err / relative norm: flash "
+        f"{e_flash[0]:.3e} / {e_flash[1]:.3e}, chunked {e_chunked[0]:.3e} / "
+        f"{e_chunked[1]:.3e}, planted fault {e_bad[0]:.3e} / "
+        f"{e_bad[1]:.3e}; bound {LOGITS_FACTOR:g}x chunked's; flash against "
+        f"chunked {max_abs_err(flash, chunked):.3e}; the layer-by-layer "
+        f"prefill equals the chunked path's")
 
-    attention.causal_attention = rerounded
-    try:
-        lg_n, _ = transformer.prefill(params, chunked, prompts, cache)
-    finally:
-        attention.causal_attention = plain_attention
-
-    def rel(a):
-        return ((a - lg_c).norm() / lg_c.norm()).item()
-    err, floor = max_abs_err(flash, lg_c), max_abs_err(lg_n, lg_c)
-    log(f"  prefill logits (std {lg_c.std().item():.3f}), flash against "
-        f"chunked attention (chunked prefill {chunked_s:.3f} s): "
-        f"max_abs_err {err:.3e}, relative norm {rel(flash):.3e}; bf16 noise "
-        f"floor (chunked, attention re-rounded): max_abs_err {floor:.3e}, "
-        f"relative norm {rel(lg_n):.3e}; bound {FLOOR_FACTOR:g}x the floor")
-    if not (err <= FLOOR_FACTOR * floor
-            and rel(flash) <= FLOOR_FACTOR * rel(lg_n)):
-        raise RuntimeError("flash prefill logits differ from the chunked "
-                           "path's by more than the bf16 noise floor allows")
+    def within(e):
+        return e[0] <= bound[0] and e[1] <= bound[1]
+    if not within(e_flash):
+        raise RuntimeError("flash prefill logits are further from attention "
+                           "in f32 than the chunked path's bf16 error allows")
+    if within(e_bad):
+        raise RuntimeError("the logits' bound does not see the planted "
+                           "fault")
+    return chunked_s
 
 
 # -- 6. timing ----------------------------------------------------------------
@@ -676,7 +797,9 @@ def main() -> None:
         raise RuntimeError("TF32 is on")
 
     t0 = time.perf_counter()
+    fault_job = start_planted_fault()      # with the others, as a control
     reports = build.build()
+    planted = finish_planted_fault(*fault_job)
     log(f"build: {len(reports)} of {len(build.SOURCES)} sources compiled in "
         f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
     for name, report in reports.items():
@@ -692,10 +815,10 @@ def main() -> None:
     log("kernels against their plain versions on the card:")
     agg_err = check_weighted_agg(dev, D)
     sgd_err = check_masked_sgd(dev, leaves)
-    flash_err = check_flash_attention(dev)
+    flash_err = check_flash_attention(dev, planted)
 
     _, launches = main_path(dev)
-    serve_launches = serve_path(dev)
+    serve_launches = serve_path(dev, planted)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)

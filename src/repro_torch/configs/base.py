@@ -1,45 +1,35 @@
 """Architecture configuration, counterpart of ``repro/configs/base.py``.
 
-``ArchConfig`` keeps every field of the reference's, so that ``reduced()``
-is the reference's own derivation, line for line; ``get_config`` knows the
-architectures the port runs so far.
+``ArchConfig`` holds the fields of the reference's that the port's dense
+GQA serving path reads, under the reference's names and defaults;
+``reduced()`` is the reference's derivation for such a config.  The MLA,
+MoE, SSM, multimodal, multi-token-prediction and federated fields come
+with the slices that read them.  ``get_config`` knows the architectures the
+port runs so far.
 """
 from __future__ import annotations
 
 import importlib
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, replace
 
 # the architectures the port runs; the others come with later slices
 PORTED_IDS = ["nemotron-4-15b"]
 
 
 @dataclass(frozen=True)
-class FedConfig:
-    """Paper knobs: rounds of E local SGD steps, scheme-based aggregation."""
-
-    scheme: str = "C"              # "A" | "B" | "C"  (Section 4.1)
-    local_epochs: int = 2          # E
-    clients_per_round: int = 8     # C simulated clients in one round
-    mode: str = "client_parallel"  # client_parallel | client_sequential
-    reboot_boost: float = 3.0      # fast-reboot coefficient boost
-    eta0: float = 0.01             # staircase learning rate eta0 / tau
-
-
-@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid | vlm | audio
+    family: str                    # dense (the others: later slices)
     n_layers: int
     d_model: int
     vocab: int
     # --- attention ---
-    n_heads: int = 0               # 0 => attention-free (pure SSM)
+    n_heads: int = 0
     n_kv_heads: int = 0
     head_dim: int = 128
     rope_theta: float = 10000.0
     pos_emb: str = "rope"          # rope | sinusoidal | none
     sliding_window: int = 0        # 0 => full attention
-    attn_logit_softcap: float = 0.0
     # --- mlp ---
     d_ff: int = 0
     activation: str = "silu"       # silu | gelu | geglu | sq_relu
@@ -51,49 +41,10 @@ class ArchConfig:
     parallel_residual: bool = False  # cohere-style parallel attn+ffn
     embed_scale: bool = False        # gemma: scale embeddings by sqrt(d)
     tie_embeddings: bool = True
-    # --- MLA (deepseek) ---
-    use_mla: bool = False
-    q_lora_rank: int = 0
-    kv_lora_rank: int = 512
-    qk_nope_dim: int = 128
-    qk_rope_dim: int = 64
-    v_head_dim: int = 128
-    # --- MoE ---
-    n_experts: int = 0
-    n_shared_experts: int = 0
-    top_k: int = 0
-    moe_d_ff: int = 0
-    first_k_dense: int = 0
-    router_score: str = "softmax"
-    capacity_factor: float = 1.25
-    router_aux_coef: float = 0.001
-    # --- SSM (mamba2 SSD) ---
-    ssm_d_state: int = 0
-    ssm_expand: int = 2
-    ssm_head_dim: int = 64
-    ssm_n_groups: int = 1
-    ssm_d_conv: int = 4
-    ssm_chunk: int = 256
-    # --- multimodal stub frontends ---
-    n_patches: int = 0
-    n_codebooks: int = 0
-    # --- extras ---
-    mtp_depth: int = 0
     dtype: str = "bfloat16"
-    # --- federated / distribution ---
-    fed: FedConfig = field(default_factory=FedConfig)
-    remat: bool = True
-    seq_parallel: bool = False
-    remat_attention: bool = True
-    expand_gqa: bool = True
     attn_impl: str = "chunked"     # "chunked" (plain PyTorch) or "flash"
     #                                (the flash_attention kernel: prefill)
     source: str = ""               # citation
-
-    # -- derived ----------------------------------------------------------
-    @property
-    def attn_free(self) -> bool:
-        return self.n_heads == 0
 
     @property
     def vocab_padded(self) -> int:
@@ -101,29 +52,14 @@ class ArchConfig:
         embedding and head; logits are sliced back to ``vocab``."""
         return -(-self.vocab // 256) * 256
 
-    @property
-    def d_inner(self) -> int:      # ssm inner width
-        return self.ssm_expand * self.d_model
-
-    @property
-    def ssm_n_heads(self) -> int:
-        return self.d_inner // self.ssm_head_dim if self.ssm_d_state else 0
-
-    @property
-    def moe_layers(self) -> int:
-        return (self.n_layers - self.first_k_dense) if self.n_experts else 0
-
-    @property
-    def dense_layers(self) -> int:
-        return self.n_layers - self.moe_layers
-
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: 2 layers, d_model<=512, <=4 experts."""
+        """Smoke-test variant: 2 layers, d_model<=256, head dim 32."""
         d = min(self.d_model, 256)
         hd = 32 if self.n_heads else self.head_dim
         n_h = min(self.n_heads, 4) if self.n_heads else 0
         n_kv = min(self.n_kv_heads, max(1, n_h // 2)) if self.n_kv_heads else 0
-        changes = dict(
+        return replace(
+            self,
             n_layers=2,
             d_model=d,
             vocab=min(self.vocab, 512),
@@ -133,30 +69,7 @@ class ArchConfig:
             d_ff=min(self.d_ff, 4 * d) if self.d_ff else 0,
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
             dtype="float32",
-            remat=False,
-            fed=replace(self.fed, clients_per_round=4, local_epochs=2),
         )
-        if self.use_mla:
-            changes.update(
-                q_lora_rank=64 if self.q_lora_rank else 0,
-                kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32,
-                head_dim=48,  # qk_nope + qk_rope
-            )
-        if self.n_experts:
-            changes.update(
-                n_experts=4,
-                top_k=min(self.top_k, 2),
-                n_shared_experts=min(self.n_shared_experts, 1),
-                moe_d_ff=2 * d,
-                first_k_dense=min(self.first_k_dense, 1),
-            )
-        if self.ssm_d_state:
-            changes.update(ssm_d_state=16, ssm_head_dim=32, ssm_chunk=32)
-        if self.n_patches:
-            changes.update(n_patches=8)
-        if self.mtp_depth:
-            changes.update(mtp_depth=1)
-        return replace(self, **changes)
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -1,6 +1,6 @@
 """Nemotron-4 15B [arXiv:2402.16819]. GQA kv=8, squared-ReLU non-gated MLP,
 LayerNorm, RoPE (partial rope in the original; full rope here), 256k vocab."""
-from repro_torch.configs.base import ArchConfig, FedConfig
+from repro_torch.configs.base import ArchConfig
 
 CONFIG = ArchConfig(
     name="nemotron-4-15b",
@@ -17,6 +17,5 @@ CONFIG = ArchConfig(
     norm="layernorm",
     use_bias=True,
     tie_embeddings=False,
-    fed=FedConfig(mode="client_parallel"),
     source="arXiv:2402.16819",
 )

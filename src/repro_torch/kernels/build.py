@@ -42,12 +42,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def compile_source(src: Path, target: Path) -> subprocess.Popen:
+    """Starts nvcc on one source into the library ``target``, with the
+    flags above; the caller waits for it (stdout holds nvcc's report)."""
+    return subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(target), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile each named source that has no up-to-date library: one nvcc
     per source, all started together.  Returns nvcc's report (the ptxas
     lines) for each source compiled; raises if any compile failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     jobs = {}
     for name in names:
         target = library_path(name)
@@ -56,9 +63,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         # a private temporary name, renamed into place once complete, so a
         # concurrent build never loads a half-written library
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        jobs[name] = (target, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        jobs[name] = (target, tmp, compile_source(CSRC / f"{name}.cu", tmp))
     reports, failed = {}, []
     for name, (target, tmp, proc) in jobs.items():
         reports[name] = proc.communicate()[0]
@@ -81,9 +86,16 @@ def load(name: str,
     lib = _libs.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        lib = _libs[name] = open_library(library_path(name), signatures)
+    return lib
+
+
+def open_library(path: Path,
+                 signatures: Mapping[str, Sequence[type]]) -> ctypes.CDLL:
+    """The library at ``path`` with the argument and result types of its
+    functions set from ``signatures`` (see ``load``)."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
     return lib

@@ -23,7 +23,7 @@ from repro_torch.kernels import build
 
 _FN = {torch.float32: "flash_attention_f32",
        torch.bfloat16: "flash_attention_bf16"}
-_SIGNATURES = {fn: (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+SIGNATURES = {fn: (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
@@ -96,10 +96,13 @@ def _strides(t: torch.Tensor, name: str):
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool = True) -> torch.Tensor:
+           causal: bool = True, lib=None) -> torch.Tensor:
     """One launch of the CUDA kernel on PyTorch's current stream; returns
     the (B, H, S, hd) output, a view of a (B, S, H, hd) buffer.  Raises on
-    arguments the kernel does not take and when the launch is refused."""
+    arguments the kernel does not take and when the launch is refused.
+    ``lib`` is the library to launch from, by default the one built from
+    ``csrc/flash_attention.cu``; another one (opened with ``SIGNATURES``)
+    must have the same C interface."""
     if not q.is_cuda:
         raise ValueError(f"the flash_attention kernel takes CUDA tensors, "
                          f"got {q.device}")
@@ -111,7 +114,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_int64 * 12)(*_strides(q, "q"), *_strides(k, "k"),
                                     *_strides(v, "v"), *_strides(out, "o"))
-    fn = getattr(build.load("flash_attention", _SIGNATURES), _FN[q.dtype])
+    lib = lib or build.load("flash_attention", SIGNATURES)
+    fn = getattr(lib, _FN[q.dtype])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  ctypes.cast(strides, ctypes.c_void_p), B, H, k.shape[1], S,

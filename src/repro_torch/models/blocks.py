@@ -10,11 +10,11 @@ from repro_torch.models.common import apply_norm, mlp_apply
 def block_apply(p, x, cfg, kind, positions, cache=None, decode=False):
     """Returns (x_out, aux_loss, cache_or_None); the cache is written in
     place (see ``attention.gqa_attention``)."""
-    if kind != "dense" or cfg.use_mla:
+    if kind != "dense":
         raise NotImplementedError(
-            f"{kind} blocks{' with MLA' if cfg.use_mla else ''} are not "
-            f"ported yet: the port runs dense GQA blocks, the MoE, SSM, "
-            f"hybrid and MLA blocks come with later slices")
+            f"{kind} blocks are not ported yet: the port runs dense GQA "
+            f"blocks, the MoE, SSM, hybrid and MLA blocks come with later "
+            f"slices")
     aux = 0.0                   # dense blocks have no auxiliary loss
     cache = cache or {}
     h = apply_norm(x, p["ln1"], cfg)

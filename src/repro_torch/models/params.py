@@ -28,27 +28,17 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def block_kinds(cfg: ArchConfig):
-    """Returns [(params_key, kind, n_layers), ...] stack layout."""
-    if cfg.family == "ssm":
-        return [("blocks", "ssm", cfg.n_layers)]
-    if cfg.family == "hybrid":
-        return [("blocks", "hybrid", cfg.n_layers)]
-    if cfg.family == "moe":
-        out = []
-        if cfg.first_k_dense:
-            out.append(("dense_blocks", "dense", cfg.first_k_dense))
-        out.append(("moe_blocks", "moe", cfg.n_layers - cfg.first_k_dense))
-        return out
+    """Returns [(params_key, kind, n_layers), ...] stack layout: one stack
+    of dense blocks (the other families' layouts come with their slices)."""
     return [("blocks", "dense", cfg.n_layers)]
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raises for what the port does not run yet: any family but the dense
     one with GQA attention."""
-    if cfg.family != "dense" or cfg.use_mla:
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family"
-            f"{' with MLA' if cfg.use_mla else ''} is not ported yet; the "
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
             f"port runs the dense GQA family, the others come with later "
             f"slices")
 
