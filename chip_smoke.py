@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths on one CUDA card: the federated
-round and LM serving.
+"""Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
+round, the compressed federated round and LM serving.
 
     python3 chip_smoke.py
 
@@ -10,18 +10,29 @@ it, and nothing of JAX or of the JAX package.  In order it
 1. prints the card (name and power limit, as nvidia-smi gives them), the
    torch and CUDA versions and the two TF32 flags;
 2. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-   and beside them a copy of flash_attention with a planted fault (FAULT)
-   that the checks below must catch;
+   and beside them two copies with a planted fault that the checks below
+   must catch: flash_attention with its first KV tile skipped
+   (FLASH_FAULT), weighted_agg_quant with every 16-code vector reading the
+   scale of its first code (QUANT_FAULT);
 3. holds each kernel against its plain PyTorch version on the card at the
-   paths' shapes (and, for flash_attention, at edge shapes that take other
-   code), at the tolerances of ``repro_torch.kernels.ops``, and
-   flash_attention in bf16 against attention in f32 (BF16_UNIT);
+   paths' shapes (and at edge shapes that take other code), at the
+   tolerances of ``repro_torch.kernels.ops`` (weighted_agg_quant: equal),
+   flash_attention in bf16 against attention in f32 (BF16_UNIT), and
+   weighted_agg_quant's memory high-water mark over one launch;
 4. drives the federated round, ``FederatedTrainer(engine="plan")`` on the
    EMNIST CNN at full width with 62 clients, through one late arrival and
    one excluding departure; checks each kernel's launch count, finite eval
    losses, and the card's parameters against the port's plain path (the
    same trainer on the CPU); then times warm rounds and profiles two;
-5. serves nemotron-4-15b at full width in bf16 with
+5. drives the compressed round, the same trainer with
+   ``compression="int8"``, ``"int8-topk"`` and ``"bf16"``: launch counts,
+   round records equal to the f32 run's, finite eval losses, wire bytes,
+   warm rounds/s in turns with f32, and profiles of int8 and int8-topk
+   rounds against the f32 round's kernels; then, from one set of
+   params and round inputs, the card's quantizer against the CPU's (bit
+   for bit) and one round per wire on the card against the CPU (within
+   PARAM_TOL plus one code step per client, see step_bound);
+6. serves nemotron-4-15b at full width in bf16 with
    ``attn_impl="flash"`` through ``repro_torch.launch.serve.serve``: a
    batch of 4 prompts of 4,096 tokens, then 32 decode steps; checks
    flash_attention's launches (one per layer per prefill, none per decode
@@ -30,9 +41,10 @@ it, and nothing of JAX or of the JAX package.  In order it
    reduced config in f32 on the card against the port's plain path on the
    CPU; prints prefill tokens/s (flash and chunked), decode ms/step and the
    memory high-water mark, and profiles a prefill and four decode steps;
-6. times each kernel beside its bound, its plain version and the one
-   PyTorch call that computes the same function, and prints them as one
-   ``{"kernels": [...]}`` line.
+7. times each kernel beside its bound, its plain version and the one
+   PyTorch call that computes the same function (for weighted_agg_quant,
+   where no single call does, a composition of calls), and prints them as
+   one ``{"kernels": [...]}`` line.
 
 Any failure raises and the script exits nonzero.  The last line,
 ``{"ok": true, "device": {...}}``, is printed only when every phase passed.
@@ -65,6 +77,7 @@ TAU_ARRIVE = 2          # TAU_DEPART, eval every EVAL_EVERY rounds
 TAU_DEPART = 4
 EVAL_EVERY = 2
 WARM_ROUNDS = 10
+TURNS = 2               # the wires' warm rounds/s: windows in turns
 PROFILED_ROUNDS = 2
 NO_EVAL = 10 ** 9
 # card against the CPU after ROUNDS rounds: f32 in another summation order
@@ -109,15 +122,38 @@ BF16_SLACK = 1.0625
 # one size, carried and amplified by the layers after them; flash's may be
 # at most LOGITS_FACTOR times chunked's, in max abs error and in relative
 # norm.  A planted fault must fail both this bound and the kernel's
-# (BF16_UNIT): the bf16 kernel built with FAULT, which skips the first of
-# the KV tiles wherever a query tile sees more than one.
+# (BF16_UNIT): the bf16 kernel built with FLASH_FAULT, which skips the
+# first of the KV tiles wherever a query tile sees more than one.
 LOGITS_FACTOR = 1.5
-FAULT = ("for (int kt = 0; kt < n_kt; ++kt) {\n    const int k0 = kt * BK;",
-         "for (int kt = n_kt > 1; kt < n_kt; ++kt) {\n"
-         "    const int k0 = kt * BK;")
+FLASH_FAULT = ("for (int kt = 0; kt < n_kt; ++kt) {\n"
+               "    const int k0 = kt * BK;",
+               "for (int kt = n_kt > 1; kt < n_kt; ++kt) {\n"
+               "    const int k0 = kt * BK;")
 # the reduced config in f32 on the card against the port's plain path on
 # the CPU: f32 in other summation orders (the kernel's f32 path, cuBLAS)
 REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
+
+# the compressed round: each wire's trainer runs this many rounds on the
+# main path's clients and plan (the int8 one through the arrival and the
+# departure)
+WIRE_ROUNDS = {"int8": ROUNDS, "int8-topk": 2, "bf16": 2}
+QUANT_CHUNK = 256       # CompressionSpec's default chunk
+# weighted_agg_quant against its plain version, both (K, D, chunk, levels)
+# of codes from quantize_chunked: the int8 wire's shape, and edge shapes
+# that take other code
+QUANT_MAIN = (N_CLIENTS, None, QUANT_CHUNK, 127)     # D: the CNN's
+QUANT_EDGES = [
+    (1, 4099, 256, 127),            # one client; D not a chunk multiple
+    (70, 4099, 256, 127),           # K > 64, the reference's K-tiled case
+    (N_CLIENTS, 100_000, 64, 127),  # another chunk that 16 divides
+    (N_CLIENTS, None, 100, 127),    # vectors straddle chunks; rows padded
+    (8, 1000, 1, 127),              # one scale per code
+    (N_CLIENTS, 4099, 256, 7),      # codes of levels=7
+]
+# the planted fault: every 16-code vector reads the scale of its first
+# code, which is right only where a vector lies inside one chunk
+QUANT_FAULT = ("static_cast<int>((col + j < D ? col + j : D - 1) / chunk "
+               "- g0)", "0")
 
 
 def log(*args) -> None:
@@ -211,28 +247,27 @@ def _qkv(dev, gen, B, H, KV, S, hd, dtype):
             .transpose(1, 2) for n in (H, KV, KV)]
 
 
-def start_planted_fault():
-    """Starts nvcc on flash_attention.cu with FAULT planted; returns the
-    library's path and the compile."""
+def start_planted_fault(name: str, fault):
+    """Starts nvcc on csrc/<name>.cu with ``fault`` (old, new) planted;
+    returns the library's path and the compile."""
     from repro_torch.kernels import build
-    text = (build.CSRC / "flash_attention.cu").read_text()
-    if text.count(FAULT[0]) != 1:
-        raise RuntimeError("the planted fault's line is not in "
-                           "flash_attention.cu once")
+    text = (build.CSRC / f"{name}.cu").read_text()
+    if text.count(fault[0]) != 1:
+        raise RuntimeError(f"the planted fault's line is not in {name}.cu "
+                           f"once")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = build.BUILD_DIR / "flash_attention_planted_fault.cu"
-    src.write_text(text.replace(*FAULT))
-    target = src.with_name("libflash_attention_planted_fault.so")
+    src = build.BUILD_DIR / f"{name}_planted_fault.cu"
+    src.write_text(text.replace(*fault))
+    target = src.with_name(f"lib{name}_planted_fault.so")
     return target, build.compile_source(src, target)
 
 
-def finish_planted_fault(target, proc):
+def finish_planted_fault(target, proc, signatures):
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import SIGNATURES
     report = proc.communicate()[0]
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on the planted fault:\n{report}")
-    return build.open_library(target, SIGNATURES)
+    return build.open_library(target, signatures)
 
 
 def f32_reference(q, k, v, causal):
@@ -297,6 +332,71 @@ def check_flash_attention(dev, planted) -> float:
     return worst
 
 
+def _quantized(dev, gen, K, D, chunk, levels):
+    """coeffs (some 0) and quantize_chunked's payload and scales of seeded
+    normal deltas (some rows all zero)."""
+    from repro_torch.core.compression import quantize_chunked
+    c = torch.rand(K, device=dev, generator=gen)
+    c[::7] = 0.0                              # clients with no work
+    d = torch.randn(K, D, device=dev, generator=gen) * 1e-2
+    d[1::5] = 0.0                             # all-zero rows: scales 0
+    payload, scales = quantize_chunked(d, chunk=chunk, levels=levels)
+    return c, payload, scales
+
+
+def check_weighted_agg_quant(dev, D: int, planted) -> float:
+    """The kernel equals its plain version at the int8 wire's shape and
+    at the edge shapes; the planted fault must differ at chunk 100."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import weighted_agg as agg
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    for K, n, chunk, levels in [QUANT_MAIN] + QUANT_EDGES:
+        n = n or D
+        c, payload, scales = _quantized(dev, gen, K, n, chunk, levels)
+        got = ops.weighted_agg_quant(c, payload, scales, chunk=chunk)
+        want = agg.weighted_agg_quant_plain(c, payload, scales, chunk)
+        bad = agg.launch_quant(c, payload, scales, chunk, lib=planted)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        log(f"  weighted_agg_quant K={K} D={n} chunk={chunk} "
+            f"levels={levels}: Dp {payload.shape[1]}, payload row stride "
+            f"{payload.stride(0)}, max_abs_err {err:.3e} against the plain "
+            f"version (must be 0); planted fault {max_abs_err(bad, want):.3e}")
+        if not torch.equal(got, want):
+            raise RuntimeError("weighted_agg_quant differs from its plain "
+                               "version")
+        if chunk == 100 and torch.equal(bad, want):
+            raise RuntimeError("the check does not see the planted fault "
+                               "at chunk 100")
+        worst = max(worst, err)
+        del c, payload, scales, got, want, bad
+    return worst
+
+
+def check_quant_memory(dev, D: int) -> None:
+    """One launch at the int8 wire's shape raises the memory high-water
+    mark by no more than its (Dp,) f32 output plus 1 MiB: the dequantized
+    (K, Dp) deltas never exist in device memory."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(7)
+    c, payload, scales = _quantized(dev, gen, N_CLIENTS, D, QUANT_CHUNK, 127)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ops.weighted_agg_quant(c, payload, scales, chunk=QUANT_CHUNK)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    limit = 4 * payload.shape[1] + 2 ** 20
+    log(f"  weighted_agg_quant memory: one launch at ({N_CLIENTS}, "
+        f"{payload.shape[1]}) raised the high-water mark by {rise} bytes "
+        f"(limit {limit}: the output plus 1 MiB; dequantized deltas would "
+        f"add {4 * payload.numel()})")
+    if rise > limit:
+        raise RuntimeError("weighted_agg_quant allocated more than its "
+                           "output")
+
+
 # -- 4. the main path -----------------------------------------------------------
 def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
     """The paper's EMNIST federation, synthetic and seeded: label-sorted
@@ -320,7 +420,7 @@ def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
     return clients
 
 
-def make_trainer(clients, device, agg: str = "auto"):
+def make_trainer(clients, device, agg: str = "auto", compression=None):
     from repro_torch.configs.paper import EMNIST_CNN as cfg
     from repro_torch.fed import FederatedTrainer
     from repro_torch.models.small import (init_small, logits_small,
@@ -337,7 +437,7 @@ def make_trainer(clients, device, agg: str = "auto"):
         init_params=init_small(cfg, seed=0, device=device), clients=clients,
         local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
         scheme="C", eta0=cfg.eta0, seed=0, engine="plan", agg=agg,
-        device=device)
+        compression=compression, device=device)
 
 
 def check_history(history) -> None:
@@ -353,13 +453,18 @@ def check_history(history) -> None:
         raise RuntimeError("non-finite eval loss on the main path")
 
 
+def same_records(a, b) -> bool:
+    """Two RoundRecords with equal tau, eta, n_active, event and s."""
+    return ((a.tau, a.eta, a.n_active, a.event)
+            == (b.tau, b.eta, b.n_active, b.event)
+            and np.array_equal(a.s, b.s))
+
+
 def compare_with_plain(card, plain) -> float:
     """The card's run against the same run on the CPU: equal records,
     eval losses within LOSS_RTOL and parameters within PARAM_TOL."""
     for a, b in zip(card.history, plain.history, strict=True):
-        if (a.tau, a.eta, a.n_active, a.event) != \
-                (b.tau, b.eta, b.n_active, b.event) \
-                or not np.array_equal(a.s, b.s):
+        if not same_records(a, b):
             raise RuntimeError(f"round records differ at tau={a.tau}")
         if math.isnan(a.loss) != math.isnan(b.loss) or (
                 not math.isnan(a.loss)
@@ -374,9 +479,11 @@ def compare_with_plain(card, plain) -> float:
     return worst
 
 
-def profile_card(label: str, fn) -> None:
+def profile_card(label: str, fn, baseline=None) -> dict:
     """Kernel time by name over one call of fn, and the card's busy share:
-    the union of kernel intervals over the host's wall time."""
+    the union of kernel intervals over the host's wall time.  Returns
+    {name: (us, launches)}; with a ``baseline`` of that form it also prints
+    each kernel whose time differs from the baseline's by 50 us or more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -392,7 +499,7 @@ def profile_card(label: str, fn) -> None:
         # hold the path and the kernels
         log(f"  profile of {label}: the profiler recorded no kernel on the "
             f"card, no breakdown")
-        return
+        return {}
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -408,6 +515,18 @@ def profile_card(label: str, fn) -> None:
         f"{busy / 1e3:.3f} ms busy ({100 * busy / wall_us:.1f}% of wall)")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"    {t / 1e3:9.3f} ms {c:6d}x  {name[:100]}")
+    if baseline:
+        log(f"    against the baseline's kernels (time and launches here "
+            f"minus there, 50 us or more):")
+        for name in sorted(set(by_name) | set(baseline),
+                           key=lambda n: -abs(by_name.get(n, (0, 0))[0]
+                                              - baseline.get(n, (0, 0))[0])):
+            (t, c), (t0, c0) = by_name.get(name, (0, 0)), \
+                baseline.get(name, (0, 0))
+            if abs(t - t0) >= 50:
+                log(f"    {(t - t0) / 1e3:+9.3f} ms {c - c0:+6d}x  "
+                    f"{name[:100]}")
+    return by_name
 
 
 def main_path(dev):
@@ -429,8 +548,8 @@ def main_path(dev):
     for h in trainer.history:
         log(f"  tau={h.tau} loss={h.loss:.6f} acc={h.acc:.4f} eta={h.eta:.3e} "
             f"n_active={h.n_active} event={h.event!r}")
-    want = {"weighted_agg": ROUNDS, "masked_sgd": ROUNDS * n_leaves * E,
-            "flash_attention": 0}
+    want = {"weighted_agg": ROUNDS, "weighted_agg_quant": 0,
+            "masked_sgd": ROUNDS * n_leaves * E, "flash_attention": 0}
     log(f"  launches {launches}, expected {want} (weighted_agg 1 per round, "
         f"masked_sgd {n_leaves} leaves x E={E} per round)")
     if launches != want:
@@ -455,12 +574,229 @@ def main_path(dev):
     log(f"  rounds/s: {ROUNDS / cold_s:.3f} over the first {ROUNDS} rounds "
         f"(eval and first calls included), {WARM_ROUNDS / warm_s:.3f} over "
         f"{WARM_ROUNDS} warm rounds without eval")
-    profile_card(f"{PROFILED_ROUNDS} warm rounds",
-                 lambda: trainer.run(PROFILED_ROUNDS, eval_every=NO_EVAL))
-    return trainer, launches
+    profile = profile_card(
+        f"{PROFILED_ROUNDS} warm rounds",
+        lambda: trainer.run(PROFILED_ROUNDS, eval_every=NO_EVAL))
+    return trainer, launches, profile
 
 
-# -- 5. LM serving ------------------------------------------------------------
+# -- 5. the compressed round ----------------------------------------------------
+def compressed_path(dev, f32_trainer, n_leaves: int, f32_profile):
+    """The trainer of the main path on each wire: launch counts, the f32
+    run's round records, finite eval losses and wire bytes; profiles of two
+    int8 and two int8-topk rounds against the f32 rounds', and warm
+    rounds/s of every wire and f32 in turns.  Returns the int8 trainer and
+    the kernels' launch counts over its run."""
+    f32_history = f32_trainer.history
+    from repro_torch.core.compression import wire_bytes
+    from repro_torch.kernels import ops
+    out = {}
+    for wire, rounds in WIRE_ROUNDS.items():
+        trainer = make_trainer(make_clients(), dev, compression=wire)
+        E = trainer.E
+        log(f"compressed round: compression={wire!r} "
+            f"({trainer.compression.name}), {rounds} rounds")
+        ops.reset_launches()
+        trainer.run(rounds, eval_every=EVAL_EVERY)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        for h in trainer.history:
+            log(f"  tau={h.tau} loss={h.loss:.6f} acc={h.acc:.4f} "
+                f"eta={h.eta:.3e} n_active={h.n_active} event={h.event!r}")
+        quantized = trainer.compression.quantized
+        want = {"weighted_agg": 0 if quantized else rounds,
+                "weighted_agg_quant": rounds if quantized else 0,
+                "masked_sgd": rounds * n_leaves * E, "flash_attention": 0}
+        log(f"  launches {launches}, expected {want}")
+        if launches != want:
+            raise RuntimeError(f"launch counts {launches} != expected {want}")
+        for a, b in zip(trainer.history, f32_history[:rounds], strict=True):
+            if not same_records(a, b):
+                raise RuntimeError(f"{wire}: round record at tau={a.tau} "
+                                   f"differs from the f32 run's")
+        evals = [h for h in trainer.history if not math.isnan(h.loss)]
+        if not evals or not all(math.isfinite(h.loss) for h in evals):
+            raise RuntimeError(f"{wire}: no finite eval loss")
+        if rounds >= TAU_DEPART:
+            check_history(trainer.history)
+        log(f"  round records equal the f32 run's; eval losses finite")
+        out[wire] = (trainer, launches)
+    D = sum(p.numel() for p in out["int8"][0].params.values())
+    f32_bytes = wire_bytes(D, "none", n_clients=N_CLIENTS)
+    log(f"wire bytes per round, {N_CLIENTS} clients of D = {D}: f32 "
+        f"{f32_bytes}, "
+        + ", ".join(f"{w} {wire_bytes(D, w, n_clients=N_CLIENTS)} "
+                    f"({f32_bytes / wire_bytes(D, w, n_clients=N_CLIENTS):.3f}"
+                    f"x fewer)" for w in WIRE_ROUNDS))
+    # past the arrival and the departure (an event round evaluates) before
+    # any window is timed or profiled
+    for trainer, _ in out.values():
+        trainer.run(WARM_ROUNDS, eval_every=NO_EVAL)
+    rounds_per_s_in_turns(
+        {"f32": f32_trainer, **{w: t for w, (t, _) in out.items()}})
+    for wire in ("int8", "int8-topk"):
+        trainer = out[wire][0]
+        profile_card(f"{PROFILED_ROUNDS} warm {wire} rounds",
+                     lambda: trainer.run(PROFILED_ROUNDS, eval_every=NO_EVAL),
+                     baseline=f32_profile)
+    return out["int8"]
+
+
+def rounds_per_s_in_turns(trainers) -> None:
+    """Warm rounds/s of each trainer, WARM_ROUNDS rounds without eval at a
+    time, in the order given and then reversed, TURNS times over; prints
+    each one's median and its ratio to the first one's."""
+    order = list(trainers)
+    times = {name: [] for name in order}
+    for _ in range(TURNS):
+        for name in order + order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainers[name].run(WARM_ROUNDS, eval_every=NO_EVAL)
+            torch.cuda.synchronize()
+            times[name].append(WARM_ROUNDS / (time.perf_counter() - t0))
+    first = float(np.median(times[order[0]]))
+    log(f"warm rounds/s in turns ({2 * TURNS} windows of {WARM_ROUNDS} "
+        f"rounds each, median): "
+        + ", ".join(f"{name} {np.median(r):.3f} "
+                    f"({np.median(r) / first:.3f}x {order[0]})"
+                    for name, r in times.items()))
+    for name, r in times.items():
+        log(f"  {name}: " + " ".join(f"{x:.3f}" for x in r))
+
+
+def round_inputs(clients, E: int, B: int, seed: int = 1):
+    """One round's inputs for every client, drawn with numpy as the host
+    loop draws them: alpha (C, E) from each client's trace, E batches of B
+    samples, and the data weights p over the clients' sample counts."""
+    rng = np.random.default_rng(seed)
+    C = len(clients)
+    alpha = np.zeros((C, E), np.float32)
+    x = np.zeros((C, E, B, *clients[0].x.shape[1:]), np.float32)
+    y = np.zeros((C, E, B), np.int32)
+    for i, cl in enumerate(clients):
+        alpha[i] = np.arange(E) < cl.trace.sample_s(rng, E)
+        idx = rng.integers(0, cl.n, size=(E, B))
+        x[i], y[i] = cl.x[idx], cl.y[idx]
+    n = np.array([cl.n for cl in clients], np.float64)
+    return alpha, {"x": x, "y": y}, (n / n.sum()).astype(np.float32)
+
+
+def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """The distance between the two bf16 values around each f32 x (8
+    significant bits: 2^(e-8) for |x| in [2^(e-1), 2^e)); 0 where x = 0,
+    which the cast keeps exactly."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8).masked_fill_(x == 0, 0.0)
+
+
+def step_bound(spec, coeffs, flat_a, flat_b) -> torch.Tensor:
+    """Per element d of the flat update, sum_k |c_k| * step_k(d): the most
+    that one flipped rounding per client can move it when two sides
+    quantize client deltas that agree to f32 noise.  int8: the larger of
+    the two sides' scales of d's chunk; bf16: the larger of the two sides'
+    bf16 spacings at delta_k[d].  All on the CPU."""
+    from repro_torch.core.compression import compress_flat
+    c = coeffs.abs()
+    D = flat_a.shape[1]
+    if spec.quantized:
+        scales = torch.maximum(compress_flat(flat_a, spec)[1],
+                               compress_flat(flat_b, spec)[1])
+        return (c @ scales).repeat_interleave(spec.chunk)[:D]
+    return c @ torch.maximum(bf16_spacing(flat_a), bf16_spacing(flat_b))
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def wires_against_cpu(dev, params) -> None:
+    """From ``params`` and one round's inputs, the local steps on the card
+    and on the CPU; then the card's quantizer against the CPU's on the
+    card's own deltas (payload, scales and top-k mask bit for bit), and one
+    round's aggregation per wire on the card against the CPU's, each
+    parameter within PARAM_TOL plus one code step per client
+    (step_bound)."""
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.core.aggregation import (aggregate_deltas_flat,
+                                              flatten_client_deltas,
+                                              scheme_coefficients)
+    from repro_torch.core.compression import (compress_flat,
+                                              resolve_compression, topk_mask)
+    from repro_torch.core.fed_step import local_sgd
+    from repro_torch.models.small import make_loss_fn
+    E = cfg.local_epochs
+    alpha, batches, p = round_inputs(make_clients(), E, cfg.batch_size)
+    coeffs = scheme_coefficients("C", p, alpha.sum(1), E)
+    sides = {}
+    t0 = time.perf_counter()
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        start = {k: v.to(d, copy=True) for k, v in params.items()}
+        deltas = local_sgd(
+            make_loss_fn(cfg), start,
+            {k: torch.from_numpy(v).to(d) for k, v in batches.items()},
+            torch.from_numpy(alpha).to(d),
+            torch.tensor(cfg.eta0, dtype=torch.float32, device=d))
+        sides[side] = (start, deltas, coeffs.to(d))
+    torch.cuda.synchronize()
+    flat = {side: flatten_client_deltas(v[1]) for side, v in sides.items()}
+    log(f"card against CPU, one round from the int8 run's params "
+        f"({time.perf_counter() - t0:.1f} s for both sides' local steps): "
+        f"deltas max_abs_err {max_abs_err(flat['card'].cpu(), flat['cpu']):.3e}")
+
+    # the quantizer: the card's deltas quantized on the card and on the CPU
+    card_deltas = flat["card"].cpu()
+    for wire in ("int8", "int8-topk"):
+        spec = resolve_compression(wire)
+        pc, sc = compress_flat(flat["card"], spec)
+        ph, sh = compress_flat(card_deltas, spec)
+        same = bit_equal(pc.cpu(), ph) and bit_equal(sc.cpu(), sh)
+        log(f"  quantizer {wire}: payload {tuple(pc.shape)} and scales "
+            f"{tuple(sc.shape)} from the card's deltas, card against CPU: "
+            f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise RuntimeError(f"the {wire} quantizer on the card differs "
+                               f"from the CPU's")
+    spec = resolve_compression("int8-topk")
+    mc = topk_mask(flat["card"], spec.topk_frac).cpu()
+    mh = topk_mask(card_deltas, spec.topk_frac)
+    log(f"  top-k mask (frac {spec.topk_frac:g}, {int(mh.sum())} kept), card "
+        f"against CPU: "
+        f"{'bit-identical' if torch.equal(mc, mh) else 'DIFFERENT'}")
+    if not torch.equal(mc, mh):
+        raise RuntimeError("the top-k mask on the card differs from the CPU's")
+
+    # one round's aggregation per wire, card against CPU
+    for wire in ("int8", "bf16"):
+        spec = resolve_compression(wire)
+        new = {}
+        for side, (start, deltas, c) in sides.items():
+            prm = aggregate_deltas_flat(
+                {k: v.clone() for k, v in start.items()}, deltas, c,
+                compression=spec)
+            new[side] = torch.cat([prm[k].reshape(-1).cpu()
+                                   for k in sorted(prm)])
+        bound = step_bound(spec, coeffs, card_deltas, flat["cpu"])
+        diff = (new["card"] - new["cpu"]).abs()
+        tol = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * new["cpu"].abs()
+        stepped = int((diff > tol).sum())
+        log(f"  round on the {wire} wire, card against CPU: params "
+            f"max_abs_err {diff.max().item():.3e}; {stepped} of "
+            f"{diff.numel()} elements outside PARAM_TOL (rtol "
+            f"{PARAM_TOL['rtol']:g}, atol {PARAM_TOL['atol']:g}) took the "
+            f"one-step allowance (median step {bound.median().item():.3e}, "
+            f"max {bound.max().item():.3e}); largest excess over PARAM_TOL "
+            f"plus the step {(diff - tol - bound).max().item():.3e}")
+        # f32 noise as in the f32 round, plus the flipped roundings
+        if not bool((diff <= tol + bound).all()):
+            raise RuntimeError(f"the {wire} round on the card is off the "
+                               f"CPU's by more than PARAM_TOL plus one code "
+                               f"step per client")
+
+
+# -- 6. LM serving ------------------------------------------------------------
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -530,7 +866,7 @@ def serve_path(dev, planted):
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"weighted_agg": 0, "masked_sgd": 0,
+    want = {"weighted_agg": 0, "weighted_agg_quant": 0, "masked_sgd": 0,
             "flash_attention": cfg.n_layers}
     log(f"  launches {launches}, expected {want} (flash_attention one per "
         f"layer per prefill, none per decode step)")
@@ -673,7 +1009,7 @@ def compare_with_chunked(params, cfg, prompts, cache, flash, planted):
     return chunked_s
 
 
-# -- 6. timing ----------------------------------------------------------------
+# -- 7. timing ----------------------------------------------------------------
 def device_ms(fn, n: int) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for a few tens of ms, so the
@@ -776,6 +1112,36 @@ def time_flash_attention(dev):
                 library_ms=library)
 
 
+def time_weighted_agg_quant(dev, D: int):
+    """The int8 wire's reduction: coeffs (K,), payload (K, Dp) int8 and
+    scales (K, Dp / chunk) f32 from quantize_chunked."""
+    from repro_torch.kernels import weighted_agg as agg
+    gen = torch.Generator(device=dev).manual_seed(8)
+    K, chunk = N_CLIENTS, QUANT_CHUNK
+    c, payload, scales = _quantized(dev, gen, K, D, chunk, 127)
+    Dp, n_chunks = payload.shape[1], scales.shape[1]
+    kernel = device_ms(lambda: agg.launch_quant(c, payload, scales, chunk),
+                       100)
+    plain = device_ms(lambda: agg.weighted_agg_quant_plain(
+        c, payload, scales, chunk), 10)
+    composition = device_ms(lambda: torch.mv(
+        (payload.float().view(K, -1, chunk) * scales[..., None])
+        .view(K, -1).t(), c), 20)
+    # codes, scales and coeffs read once, the output written once; a
+    # multiply by the scale, one by the coefficient and an add per code
+    n_bytes = K * Dp + 4 * (K * n_chunks + K + Dp)
+    bound, by = bound_ms(n_bytes, 3 * K * Dp)
+    log(f"  weighted_agg_quant, coeffs ({K},), payload ({K}, {Dp}) int8, "
+        f"scales ({K}, {n_chunks}) f32: kernel {kernel * 1e3:.1f} us "
+        f"({n_bytes / kernel / 1e9:.3f} TB/s), bound {bound * 1e3:.1f} us "
+        f"by {by}, plain {plain * 1e3:.1f} us; no single PyTorch call "
+        f"computes it: the composition torch.mv((payload.float().view(K, -1, "
+        f"chunk) * scales[..., None]).view(K, -1).t(), coeffs) "
+        f"{composition * 1e3:.1f} us")
+    return dict(ms=kernel, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, composition_ms=composition)
+
+
 def main() -> None:
     import_port()
     if not torch.cuda.is_available():
@@ -796,10 +1162,15 @@ def main() -> None:
             torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on")
 
+    from repro_torch.kernels import flash_attention, weighted_agg
     t0 = time.perf_counter()
-    fault_job = start_planted_fault()      # with the others, as a control
+    # the planted faults compile with the others, as controls
+    flash_job = start_planted_fault("flash_attention", FLASH_FAULT)
+    quant_job = start_planted_fault("weighted_agg_quant", QUANT_FAULT)
     reports = build.build()
-    planted = finish_planted_fault(*fault_job)
+    planted = finish_planted_fault(*flash_job, flash_attention.SIGNATURES)
+    planted_quant = finish_planted_fault(*quant_job,
+                                         weighted_agg.QUANT_SIGNATURES)
     log(f"build: {len(reports)} of {len(build.SOURCES)} sources compiled in "
         f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
     for name, report in reports.items():
@@ -816,20 +1187,33 @@ def main() -> None:
     agg_err = check_weighted_agg(dev, D)
     sgd_err = check_masked_sgd(dev, leaves)
     flash_err = check_flash_attention(dev, planted)
+    quant_err = check_weighted_agg_quant(dev, D, planted_quant)
+    check_quant_memory(dev, D)
 
-    _, launches = main_path(dev)
+    f32_trainer, launches, f32_profile = main_path(dev)
+    int8_trainer, int8_launches = compressed_path(
+        dev, f32_trainer, len(leaves), f32_profile)
+    del f32_trainer
+    wires_against_cpu(dev, int8_trainer.params)
+    del int8_trainer
     serve_launches = serve_path(dev, planted)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)
     sgd_t = time_masked_sgd(dev, leaves)
     flash_t = time_flash_attention(dev)
+    quant_t = time_weighted_agg_quant(dev, D)
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
         dict(name="weighted_agg", route="cuda",
              source=f"{csrc}/weighted_agg.cu",
              replaces="src/repro/kernels/weighted_agg.py:108",
              launches=launches["weighted_agg"], max_abs_err=agg_err, **agg_t),
+        dict(name="weighted_agg_quant", route="cuda",
+             source=f"{csrc}/weighted_agg_quant.cu",
+             replaces="src/repro/kernels/weighted_agg.py:187",
+             launches=int8_launches["weighted_agg_quant"],
+             max_abs_err=quant_err, **quant_t),
         dict(name="masked_sgd", route="cuda", source=f"{csrc}/masked_sgd.cu",
              replaces="src/repro/kernels/masked_sgd.py:26",
              launches=launches["masked_sgd"], max_abs_err=sgd_err, **sgd_t),

@@ -7,11 +7,12 @@ each module has one counterpart to be held against.  It imports neither
 numpy-only modules it keeps as its own copy.
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` (see :func:`resolve_device`).  The two kernels of the
-federated round, ``weighted_agg`` and ``masked_sgd``, and the prefill
-attention of LM serving, ``flash_attention``, are hand-written CUDA for
-``sm_90a`` (``kernels/csrc/``), built with ``nvcc`` at their first launch;
-CPU tensors take their plain PyTorch versions.
+``device="cpu"`` (see :func:`resolve_device`).  The kernels of the
+federated round, ``weighted_agg``, ``masked_sgd`` and, on the int8 wires,
+``weighted_agg_quant``, and the prefill attention of LM serving,
+``flash_attention``, are hand-written CUDA for ``sm_90a``
+(``kernels/csrc/``), built with ``nvcc`` at their first launch; CPU
+tensors take their plain PyTorch versions.
 """
 from repro_torch.device import resolve_device
 

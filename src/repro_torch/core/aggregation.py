@@ -19,8 +19,10 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.compression import (compress_flat, resolve_compression,
+                                          round_trip)
 from repro_torch.kernels import ops
-from repro_torch.kernels.weighted_agg import row_stride
+from repro_torch.kernels.weighted_agg import padded, row_stride
 
 Params = Dict[str, torch.Tensor]
 
@@ -78,15 +80,51 @@ def flatten_client_deltas(deltas: Params) -> torch.Tensor:
                      + [pad], dim=1)[:, :D]
 
 
-def aggregate_deltas_flat(params: Params, deltas: Params,
-                          coeffs: torch.Tensor) -> Params:
-    """Same contract as aggregate_deltas, but the whole model is flattened
-    into one (C, D_total) buffer and reduced with ONE weighted_agg launch
-    (instead of one scaled sum per leaf).  Updates params in place."""
-    agg = ops.weighted_agg(coeffs.float(), flatten_client_deltas(deltas))
+def _apply_flat(params: Params, agg: torch.Tensor) -> Params:
+    """params <- params + agg, the (D_total,) update cut into the leaves in
+    sorted-key order.  Updates params in place."""
     update, off = {}, 0
     for name in sorted(params):
         n = params[name].numel()
         update[name] = agg[off:off + n]
         off += n
     return _apply(params, update)
+
+
+def aggregate_deltas_flat(params: Params, deltas: Params,
+                          coeffs: torch.Tensor, *,
+                          compression=None) -> Params:
+    """Same contract as aggregate_deltas, but the whole model is flattened
+    into one (C, D_total) buffer and reduced with ONE kernel launch
+    (instead of one scaled sum per leaf).  Updates params in place.
+
+    compression: optional CompressionSpec/str (core.compression).  The
+    int8 kinds quantize the flat buffer and reduce the (payload, scales)
+    pair with one weighted_agg_quant launch, which dequantizes in
+    registers; bf16 casts the buffer into the bf16 rows weighted_agg
+    reads."""
+    spec = resolve_compression(compression)
+    flat = flatten_client_deltas(deltas)
+    coeffs = coeffs.float()
+    if spec.quantized:
+        payload, scales = compress_flat(flat, spec)
+        agg = ops.weighted_agg_quant(coeffs, payload, scales,
+                                     chunk=spec.chunk)[:flat.shape[1]]
+    else:
+        if spec.kind == "bf16":
+            flat = padded(flat, torch.bfloat16)
+        agg = ops.weighted_agg(coeffs, flat)
+    return _apply_flat(params, agg)
+
+
+def aggregate_deltas_compressed_ref(params: Params, deltas: Params,
+                                    coeffs: torch.Tensor,
+                                    compression) -> Params:
+    """Plain reference for the compressed flat reduction: quantize ->
+    dequantize -> matrix-vector product on the same flat layout and chunk
+    grid as the kernel path; only the f32 reduction order differs.  The
+    tree path's compressed round (``agg="tree"``).  Updates params in
+    place."""
+    spec = resolve_compression(compression)
+    flat = round_trip(flatten_client_deltas(deltas), spec)
+    return _apply_flat(params, coeffs.float() @ flat)

@@ -18,7 +18,9 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.core.aggregation import (aggregate_deltas,
+                                          aggregate_deltas_compressed_ref,
                                           aggregate_deltas_flat)
+from repro_torch.core.compression import resolve_compression
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
@@ -63,16 +65,28 @@ def local_sgd(loss_fn: Callable, params: Params, batches, alpha: torch.Tensor,
 
 def fed_round_parallel(loss_fn: Callable, params: Params, batches,
                        alpha: torch.Tensor, coeffs: torch.Tensor,
-                       eta: torch.Tensor, *, agg: str = "tree") -> Params:
+                       eta: torch.Tensor, *, agg: str = "tree",
+                       compression=None) -> Params:
     """batches: dict of (C, E, ...) tensors; alpha: (C, E); coeffs: (C,).
     Returns the new params, written into ``params`` in place.
 
     agg selects the aggregation layout: "tree" reduces leaf by leaf in
     plain PyTorch; "flat" flattens the deltas into one (C, D_total) buffer
-    and reduces it with a single weighted_agg launch."""
+    and reduces it with a single kernel launch.
+
+    compression: optional CompressionSpec/str: the client deltas go
+    through the wire format right after the local steps.  On the flat
+    layout the weighted_agg_quant kernel takes the int8 payload as it is
+    (bf16: a cast into weighted_agg); on the tree layout the plain
+    reference round-trips the same quantization lattice."""
+    spec = resolve_compression(compression)
     deltas = local_sgd(loss_fn, params, batches, alpha, eta)
     if agg == "flat":
-        return aggregate_deltas_flat(params, deltas, coeffs)
+        return aggregate_deltas_flat(params, deltas, coeffs,
+                                     compression=spec)
     if agg == "tree":
+        if spec.active:
+            return aggregate_deltas_compressed_ref(params, deltas, coeffs,
+                                                   spec)
         return aggregate_deltas(params, deltas, coeffs)
     raise ValueError(f"agg must be tree|flat, got {agg!r}")

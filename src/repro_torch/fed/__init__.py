@@ -1,4 +1,5 @@
 """The federation layer: trainer, scheduler, control plane and engine."""
+from repro_torch.core.compression import CompressionSpec, resolve_compression
 from repro_torch.fed.driver import Client, FederatedTrainer, RoundRecord
 from repro_torch.fed.engine import RoundEngine
 from repro_torch.fed.events import Arrival, Departure, ParticipationEvent
@@ -6,6 +7,7 @@ from repro_torch.fed.state import FedState
 from repro_torch.fed.stream import StreamScheduler
 from repro_torch.fed.task import ArrayTask, BufferSpec, ClientTask
 
-__all__ = ["Client", "FederatedTrainer", "RoundRecord", "RoundEngine",
-           "Arrival", "Departure", "ParticipationEvent", "FedState",
-           "StreamScheduler", "ArrayTask", "BufferSpec", "ClientTask"]
+__all__ = ["CompressionSpec", "resolve_compression", "Client",
+           "FederatedTrainer", "RoundRecord", "RoundEngine", "Arrival",
+           "Departure", "ParticipationEvent", "FedState", "StreamScheduler",
+           "ArrayTask", "BufferSpec", "ClientTask"]

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.aggregation import scheme_coefficients
 from repro_torch.core.arrivals import RebootState, staircase_lr
+from repro_torch.core.compression import resolve_compression
 from repro_torch.core.departures import BoundTerms, should_exclude
 from repro_torch.core.fed_step import fed_round_parallel
 from repro_torch.core.participation import Trace
@@ -71,7 +72,9 @@ class FederatedTrainer:
     axis (``models.small.make_loss_fn``); eval_fn(params, x, y) -> (loss,
     acc) for one model.  ``init_params`` is copied to ``device`` (the CUDA
     device unless ``device="cpu"``); the trainer's own copy is updated in
-    place round by round.
+    place round by round.  ``compression`` (None, a string such as
+    ``"int8"``, or a ``CompressionSpec``) is the wire format of the client
+    deltas (``core/compression.py``).
     """
 
     def __init__(self, *, loss_fn: Callable,
@@ -82,7 +85,7 @@ class FederatedTrainer:
                  horizon: Optional[int] = None,
                  bound_terms: Optional[BoundTerms] = None,
                  seed: int = 0, engine: str = "plan", agg: str = "auto",
-                 device=None):
+                 compression=None, device=None):
         if engine not in ("plan", "host"):
             raise ValueError(f"engine must be plan|host, got {engine!r}")
         self.device = resolve_device(device)
@@ -101,6 +104,7 @@ class FederatedTrainer:
         self.bound_terms = bound_terms or BoundTerms(
             D=5.0, V=20.0, gamma=10.0, E=local_epochs)
         self.rng = np.random.default_rng(seed)
+        self.compression = resolve_compression(compression)
         self.engine_mode = engine
         self.agg = agg
         self._scheduler = None
@@ -196,7 +200,8 @@ class FederatedTrainer:
                 {k: torch.from_numpy(v).to(dev) for k, v in batches.items()},
                 torch.from_numpy(alpha).to(dev),
                 torch.from_numpy(coeffs).to(dev),
-                torch.tensor(eta, dtype=torch.float32, device=dev))
+                torch.tensor(eta, dtype=torch.float32, device=dev),
+                compression=self.compression)
             loss = acc = float("nan")
             if tau % eval_every == 0 or ev:
                 loss, acc = self.evaluate()
@@ -228,7 +233,8 @@ class FederatedTrainer:
             engine = RoundEngine(
                 loss_fn=self.loss_fn, clients=self.clients,
                 local_epochs=self.E, batch_size=self.B, scheme=self.scheme,
-                eta0=self.eta0, agg=self.agg, device=self.device)
+                eta0=self.eta0, agg=self.agg, device=self.device,
+                compression=self.compression)
             self._scheduler = StreamScheduler(
                 clients=self.clients, init_params=self.params, engine=engine,
                 reboot_boost=self.reboot_boost, fast_reboot=self.fast_reboot,

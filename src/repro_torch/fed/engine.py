@@ -7,8 +7,8 @@ stacks; a round gathers its batches there from host-sampled indices (the
 seed order, so the run is sample-for-sample the reference's).  Scheme
 A/B/C coefficients, the fast-reboot boost (exact O((tau-tau0)^-2) decay at
 every round) and the staircase LR are computed on the device, and the
-round's deltas are reduced with one ``weighted_agg`` launch (``agg="flat"``)
-or leaf by leaf (``agg="tree"``).
+round's deltas are reduced with one kernel launch (``agg="flat"``) or leaf
+by leaf (``agg="tree"``), through the wire format of ``compression=``.
 
 Capacity slots: slots beyond the founding clients start empty;
 ``admit_many`` writes a burst of clients into slots with one transfer per
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregation import scheme_coefficients
+from repro_torch.core.compression import resolve_compression
 from repro_torch.core.fed_step import fed_round_parallel
 from repro_torch.device import resolve_device
 from repro_torch.fed.task import ArrayTask
@@ -39,16 +40,20 @@ class RoundEngine:
     round and reboot state are constant within a span (the scheduler
     splits spans at every event) and enter ``run_span`` as arguments.
 
-    ``agg="auto"`` picks ``"flat"``, the weighted_agg kernel, on CUDA, and
+    ``agg="auto"`` picks ``"flat"``, the kernel path, on CUDA, and
     ``"tree"`` on the CPU, where the kernel's plain version loops over the
-    clients and the per-leaf reduction is cheaper.
+    clients and the per-leaf reduction is cheaper; on a quantized wire
+    (``compression="int8"`` or ``"int8-topk"``) it picks ``"flat"`` on the
+    CPU too, as the reference does: the plain version reduces the int8
+    payload as it is.
     """
 
     def __init__(self, *, clients, local_epochs: int, batch_size: int,
                  loss_fn=None, task=None, scheme: str = "C",
                  eta0: float = 0.01, agg: str = "auto",
                  capacity: Optional[int] = None,
-                 max_samples: Optional[int] = None, device=None):
+                 max_samples: Optional[int] = None, device=None,
+                 compression=None):
         if (task is None) == (loss_fn is None):
             raise ValueError("pass exactly one of task= or loss_fn=")
         if task is None:
@@ -67,8 +72,11 @@ class RoundEngine:
         # over a tensor is computed as eta0 * (1 / x), rounded twice)
         self._eta0 = torch.tensor(eta0, dtype=torch.float32,
                                   device=self.device)
+        # the delta wire format (core/compression)
+        self.compression = resolve_compression(compression)
         if agg == "auto":
-            agg = "flat" if self.device.type == "cuda" else "tree"
+            agg = ("flat" if self.device.type == "cuda"
+                   or self.compression.quantized else "tree")
         if agg not in ("tree", "flat"):
             raise ValueError(f"agg must be auto|tree|flat, got {agg!r}")
         self.agg = agg
@@ -157,7 +165,8 @@ class RoundEngine:
         coeffs = coeffs * (1.0 + (rb_boost - 1.0) / (1.0 + dt).square())
         eta = self._eta0 / torch.clamp((tau + 1 - lr_shift).float(), min=1.0)
         params = fed_round_parallel(self.loss_fn, params, batches, alpha,
-                                    coeffs, eta, agg=self.agg)
+                                    coeffs, eta, agg=self.agg,
+                                    compression=self.compression)
         return params, s, eta
 
     # -- host entry point -----------------------------------------------------

@@ -9,8 +9,10 @@ wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels.  ``TOLERANCE`` holds the
 tolerance of each kernel, per dtype of its data, against its plain version
 on the card and against the reference's Pallas kernel in the CPU tests
-(the reference suite's own values, ``tests/test_kernels.py:22-23``, ``:36``
-and ``:195-196``); ``chip_smoke.py`` and the tests read both from here.
+(the reference suite's own values, ``tests/test_kernels.py:22-23``, ``:36``,
+``:100-101`` and ``:195-196``); ``chip_smoke.py`` and the tests read both
+from here.  ``weighted_agg_quant`` and its plain version make the same
+roundings in the same order, so on the card the two must be equal.
 """
 from __future__ import annotations
 
@@ -22,12 +24,13 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import masked_sgd as _sgd
 from repro_torch.kernels import weighted_agg as _agg
 
-launches: Dict[str, int] = {"weighted_agg": 0, "masked_sgd": 0,
-                            "flash_attention": 0}
+launches: Dict[str, int] = {"weighted_agg": 0, "weighted_agg_quant": 0,
+                            "masked_sgd": 0, "flash_attention": 0}
 
 TOLERANCE = {
     "weighted_agg": {torch.float32: dict(rtol=1e-6, atol=1e-5),
                      torch.bfloat16: dict(rtol=2e-2, atol=1e-5)},
+    "weighted_agg_quant": {torch.int8: dict(rtol=1e-5, atol=1e-6)},
     "masked_sgd": {torch.float32: dict(rtol=1e-5, atol=1e-5),
                    torch.bfloat16: dict(rtol=2e-2, atol=1e-5)},
     "flash_attention": {torch.float32: dict(rtol=2e-5, atol=1e-5),
@@ -56,6 +59,20 @@ def weighted_agg(coeffs: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
         return _agg.weighted_agg_plain(coeffs, deltas)
     out = _agg.launch(coeffs, deltas)
     launches["weighted_agg"] += 1
+    return out
+
+
+def weighted_agg_quant(coeffs: torch.Tensor, payload: torch.Tensor,
+                       scales: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """coeffs (K,) f32, payload (K, Dp) int8 and scales (K, Dp / chunk) f32
+    (``core.compression.quantize_chunked``'s layout) -> (Dp,) f32 with
+    out[d] = sum_k coeffs[k] * payload[k, d] * scales[k, d // chunk]: the
+    codes dequantized and reduced without a (K, Dp) f32 buffer."""
+    _agg.check_quant_args(coeffs, payload, scales, chunk)
+    if not _on_card(payload, "weighted_agg_quant"):
+        return _agg.weighted_agg_quant_plain(coeffs, payload, scales, chunk)
+    out = _agg.launch_quant(coeffs, payload, scales, chunk)
+    launches["weighted_agg_quant"] += 1
     return out
 
 

@@ -6,5 +6,8 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.masked_sgd import masked_sgd_plain as masked_sgd_ref
 from repro_torch.kernels.weighted_agg import \
     weighted_agg_plain as weighted_agg_ref
+from repro_torch.kernels.weighted_agg import \
+    weighted_agg_quant_plain as weighted_agg_quant_ref
 
-__all__ = ["weighted_agg_ref", "masked_sgd_ref", "flash_attention_ref"]
+__all__ = ["weighted_agg_ref", "weighted_agg_quant_ref", "masked_sgd_ref",
+           "flash_attention_ref"]

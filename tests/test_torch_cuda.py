@@ -148,3 +148,64 @@ def test_reduced_lm_prefill_on_the_card_matches_the_cpu(card):
     torch.cuda.synchronize()
     assert ops.launches["flash_attention"] == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _quantized(card, K, D, chunk, levels, seed):
+    from repro_torch.core.compression import quantize_chunked
+    gen = torch.Generator(device=card).manual_seed(seed)
+    c = torch.rand(K, device=card, generator=gen)
+    c[::7] = 0.0                              # clients with no work
+    d = torch.randn(K, D, device=card, generator=gen)
+    d[1::5] = 0.0                             # all-zero rows
+    return (c,) + quantize_chunked(d, chunk=chunk, levels=levels)
+
+
+@pytest.mark.parametrize("K,D,chunk,levels", [
+    (62, 461630, 256, 127), (1, 4099, 256, 127), (70, 4099, 256, 127),
+    (62, 100000, 64, 127), (62, 461630, 100, 127), (8, 1000, 1, 127),
+    (62, 4099, 256, 7), (3, 16, 16, 127)])
+def test_weighted_agg_quant_kernel_equals_plain(card, K, D, chunk, levels):
+    """The kernel makes the plain version's roundings in its order: equal,
+    at the int8 wire's shape and at edge shapes (K > 64, chunks 16 does not
+    divide, one scale per code, rows padded to 16 bytes, levels 7)."""
+    from repro_torch.kernels.weighted_agg import weighted_agg_quant_plain
+    c, payload, scales = _quantized(card, K, D, chunk, levels, K + D + chunk)
+    before = ops.launches["weighted_agg_quant"]
+    got = ops.weighted_agg_quant(c, payload, scales, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launches["weighted_agg_quant"] == before + 1
+    assert got.shape == (payload.shape[1],)
+    assert torch.equal(got, weighted_agg_quant_plain(c, payload, scales,
+                                                     chunk))
+
+
+def test_weighted_agg_quant_kernel_allocates_only_its_output(card):
+    K, D, chunk = 62, 461630, 256
+    c, payload, scales = _quantized(card, K, D, chunk, 127, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    ops.weighted_agg_quant(c, payload, scales, chunk=chunk)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(card) - base
+    assert rise <= 4 * payload.shape[1] + 2 ** 20
+
+
+def test_weighted_agg_quant_kernel_refuses_unaligned_rows(card):
+    payload = torch.zeros(3, 100, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="padded"):
+        ops.weighted_agg_quant(torch.ones(3, device=card), payload,
+                               torch.ones(3, 1, device=card), chunk=100)
+
+
+def test_quantizer_on_the_card_equals_the_cpu(card):
+    from repro_torch.core.compression import (compress_flat,
+                                              resolve_compression)
+    gen = torch.Generator(device=card).manual_seed(1)
+    flat = torch.randn(62, 461630, device=card, generator=gen) * 1e-3
+    for wire in ("int8", "int8-topk", "int8:chunk=100,levels=7"):
+        spec = resolve_compression(wire)
+        pc, sc = compress_flat(flat, spec)
+        ph, sh = compress_flat(flat.cpu(), spec)
+        assert torch.equal(pc.cpu(), ph)
+        assert torch.equal(sc.cpu().view(torch.int32), sh.view(torch.int32))
