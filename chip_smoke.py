@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
-round, the compressed federated round and LM serving.
+round, the compressed federated round, LM serving and Mamba2 SSD serving.
 
     python3 chip_smoke.py
 
@@ -13,12 +13,17 @@ it, and nothing of JAX or of the JAX package.  In order it
    and beside them two copies with a planted fault that the checks below
    must catch: flash_attention with its first KV tile skipped
    (FLASH_FAULT), weighted_agg_quant with every 16-code vector reading the
-   scale of its first code (QUANT_FAULT);
+   scale of its first code (QUANT_FAULT), ssd_intra_chunk with the first key
+   tile of every query tile that reads more than one skipped (SSD_FAULT);
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes (and at edge shapes that take other code), at the
    tolerances of ``repro_torch.kernels.ops`` (weighted_agg_quant: equal),
-   flash_attention in bf16 against attention in f32 (BF16_UNIT), and
-   weighted_agg_quant's memory high-water mark over one launch;
+   flash_attention in bf16 against attention in f32 (BF16_UNIT),
+   weighted_agg_quant's memory high-water mark over one launch, and
+   ssd_intra_chunk at the serving prefill's shape with the upper triangle
+   overflowing exp (no NaN or inf), in bf16 also against the function in
+   f32 within its rounding bound (at the serving cell count on three
+   draws);
 4. drives the federated round, ``FederatedTrainer(engine="plan")`` on the
    EMNIST CNN at full width with 62 clients, through one late arrival and
    one excluding departure; checks each kernel's launch count, finite eval
@@ -41,10 +46,16 @@ it, and nothing of JAX or of the JAX package.  In order it
    reduced config in f32 on the card against the port's plain path on the
    CPU; prints prefill tokens/s (flash and chunked), decode ms/step and the
    memory high-water mark, and profiles a prefill and four decode steps;
+   then serves mamba2-130m at full width in bf16 the same way: 24
+   ssd_intra_chunk launches per prefill and none per decode step, finite
+   logits, the prefill's logits with the kernel and with its plain version
+   against the model with the intra-chunk term in f64 (LOGITS_FACTOR),
+   decode steps against the full forward in f32, the reduced config on the
+   card against the CPU; prefill and decode times, busy shares, memory;
 7. times each kernel beside its bound, its plain version and the one
-   PyTorch call that computes the same function (for weighted_agg_quant,
-   where no single call does, a composition of calls), and prints them as
-   one ``{"kernels": [...]}`` line.
+   PyTorch call that computes the same function (for weighted_agg_quant
+   and ssd_intra_chunk, where no single call does, a composition of
+   calls), and prints them as one ``{"kernels": [...]}`` line.
 
 Any failure raises and the script exits nonzero.  The last line,
 ``{"ok": true, "device": {...}}``, is printed only when every phase passed.
@@ -133,6 +144,58 @@ FLASH_FAULT = ("for (int kt = 0; kt < n_kt; ++kt) {\n"
 # the CPU: f32 in other summation orders (the kernel's f32 path, cuBLAS)
 REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
 
+# Mamba2 SSD serving: mamba2-130m at full width in bf16, the same batch,
+# prompt length and decode steps as the nemotron phase
+SSM_ARCH = "mamba2-130m"
+SSD_HEADS = 24          # mamba2-130m's SSD heads (one group)
+SSD_Q, SSD_N, SSD_P = 256, 128, 64
+# the serving prefill's cells: (batch * chunks, heads), the group's C and B
+# read by its 24 heads through a stride-0 dim (the model's layout)
+SSD_MAIN = (SERVE_BATCH * PROMPT_LEN // SSD_Q, SSD_HEADS, SSD_Q, SSD_N,
+            SSD_P, torch.float32)
+# edge shapes, (G, Q, N, P, dtype): one row, a ragged query tile (Q = 100,
+# which a 100-token prompt gives), the reduced config's Q, N and P, and bf16
+# (the Pallas kernel's other type) at two shapes, the second of them the
+# serving prefill's cell count
+SSD_EDGES = [
+    (96, 1, SSD_N, SSD_P, torch.float32),
+    (96, 100, SSD_N, SSD_P, torch.float32),
+    (96, 32, 16, 32, torch.float32),
+    (96, 128, 64, 64, torch.bfloat16),
+    (SSD_MAIN[0] * SSD_HEADS, SSD_Q, SSD_N, SSD_P, torch.bfloat16),
+]
+# the last edge shape (bf16 at the serving cell count) is checked on this
+# many draws of its inputs, the generator running on between them, so that
+# the rounding bound's reading there rests on more than one draw
+SSD_BF16_DRAWS = 3
+# ssd_intra_chunk in bf16 against the same function in f32
+# (ssd_intra_chunk_plain on the bf16 inputs): the kernel rounds each score
+# s_ij (the decay applied) to bf16 once, a relative error of at most 2^-8,
+# before its product with xdt, so |got - y32| <= 2^-8 A with A = sum_j
+# |s_ij| |xdt_j|, plus the f32 sums taken in another order, at most
+# (N + Q) 2^-24 A2 with A2 the same sums of absolute products.  The kernel
+# is held to ops.TOLERANCE (the reference suite's) in f32, and in bf16 at
+# the reference suite's sizes (Q <= 128): at the serving cell count the
+# bf16 rounding of the scores, which is the Pallas body's own arithmetic,
+# leaves an element or so of 25 M outside its atol of 0.4, and the bound
+# above holds the kernel there.  A planted fault must fail every one of
+# these bounds: the kernel built with SSD_FAULT, which skips the first key
+# tile of every query tile that reads more than one.
+SSD_FAULT = ("for (int kt = 0; kt < n_kt; ++kt) {",
+             "for (int kt = n_kt > 1; kt < n_kt; ++kt) {")
+# the prefill logits of mamba2-130m in bf16, the intra-chunk term from the
+# kernel and from its plain version (same weights and prompts), against one
+# reference: the same model with the intra-chunk term summed in f64 and
+# rounded to f32.  The kernel and the plain version both sum in f32 in
+# their own orders, so their errors against that reference are of one
+# size, carried through the layers by the bf16 roundings after them; the
+# kernel's may be at most LOGITS_FACTOR times the plain version's, in max
+# abs error and in relative norm, and the planted fault must fail that.
+SSM_DECODE_STEPS = 8    # decode steps held against a full forward (f32)
+# the decode steps against the full forward in f32 (tests/test_decode.py's
+# check at the reference's tolerance), the same weights upcast to f32
+DECODE_TOL = dict(rtol=1e-4, atol=1e-4)
+
 # the compressed round: each wire's trainer runs this many rounds on the
 # main path's clients and plan (the int8 one through the arrival and the
 # departure)
@@ -179,6 +242,12 @@ def card_line() -> str:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def expected_launches(**counts) -> dict:
+    """Every kernel's launch count: those named, 0 for the others."""
+    from repro_torch.kernels import ops
+    return {name: counts.get(name, 0) for name in ops.launches}
 
 
 # -- 3. each kernel against its plain version ---------------------------------
@@ -247,14 +316,14 @@ def _qkv(dev, gen, B, H, KV, S, hd, dtype):
             .transpose(1, 2) for n in (H, KV, KV)]
 
 
-def start_planted_fault(name: str, fault):
-    """Starts nvcc on csrc/<name>.cu with ``fault`` (old, new) planted;
-    returns the library's path and the compile."""
+def start_planted_fault(name: str, fault, sites: int = 1):
+    """Starts nvcc on csrc/<name>.cu with ``fault`` (old, new) planted at
+    each of its ``sites``; returns the library's path and the compile."""
     from repro_torch.kernels import build
     text = (build.CSRC / f"{name}.cu").read_text()
-    if text.count(fault[0]) != 1:
+    if text.count(fault[0]) != sites:
         raise RuntimeError(f"the planted fault's line is not in {name}.cu "
-                           f"once")
+                           f"{sites} time(s)")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = build.BUILD_DIR / f"{name}_planted_fault.cu"
     src.write_text(text.replace(*fault))
@@ -397,6 +466,124 @@ def check_quant_memory(dev, D: int) -> None:
                            "output")
 
 
+def ssd_inputs(dev, gen, G, Q, N, P, dtype, heads: int = 0):
+    """cum from mamba2's step sizes and decay rates (dt log-uniform in
+    [1e-3, 1e-1] per position, A in [-16, -1] per cell), so that above the
+    diagonal cum_i - cum_j overflows exp in many cells; C, B and xdt normal.
+    With ``heads``, the model's layout: cells (G, heads), C and B of the
+    cell's group expanded over its heads (stride 0), xdt the (G, heads, Q,
+    P) view of a (G, Q, heads, P) buffer."""
+    cells = (G, heads) if heads else (G,)
+    n = G * max(heads, 1)
+    dt = torch.exp(torch.empty(n, Q, device=dev).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen))
+    A = -torch.empty(n, 1, device=dev).uniform_(1.0, 16.0, generator=gen)
+    cum = torch.cumsum(dt * A, dim=-1).view(*cells, Q)
+    if heads:
+        C, B = (torch.randn(G, 1, Q, N, device=dev, generator=gen).to(dtype)
+                .expand(G, heads, Q, N) for _ in range(2))
+        xdt = torch.randn(G, Q, heads, P, device=dev, generator=gen) \
+            .to(dtype).transpose(1, 2)
+    else:
+        C, B = (torch.randn(G, Q, N, device=dev, generator=gen).to(dtype)
+                for _ in range(2))
+        xdt = torch.randn(G, Q, P, device=dev, generator=gen).to(dtype)
+    return cum, C, B, xdt
+
+
+def ssd_bf16_reference(cum, C, B, xdt):
+    """The function in f32 on the bf16 inputs; returns the function that
+    measures an output against it in units of its bf16 bound (see SSD_FAULT's
+    comment), and the Pallas body's arithmetic in plain PyTorch: the scores
+    in f32, rounded to bf16, their product with xdt summed in f32."""
+    Q, N = cum.shape[-1], C.shape[-1]
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=cum.device).tril()
+    L = torch.where(mask, torch.exp(diff), 0.0)
+    del diff
+    Cf, Bf, xf = C.float(), B.float(), xdt.float()
+    s = torch.einsum("...qn,...sn->...qs", Cf, Bf).mul_(L)
+    y32 = s @ xf
+    pallas = s.to(torch.bfloat16).float() @ xf
+    bound = s.abs_() @ xf.abs()
+    bound.mul_(2.0 ** -8).add_(
+        (torch.einsum("...qn,...sn->...qs", Cf.abs(), Bf.abs()).mul_(L)
+         @ xf.abs()).mul_((N + Q) * 2.0 ** -24))
+    del s, L, Cf, Bf, xf
+
+    def excess(o):
+        return ((o - y32).abs_() / bound.clamp_min(1e-30)).max().item()
+    return excess, pallas
+
+
+def check_ssd_intra_chunk(dev, planted) -> float:
+    """The kernel against its plain version at the serving prefill's shape
+    (f32, the model's layout) and the edge shapes; no NaN or inf; bf16 also
+    against the function in f32 within its rounding bound.  The planted
+    fault must fail ops.TOLERANCE at the serving shape and, in bf16, both
+    ops.TOLERANCE and the rounding bound.  Returns the serving shape's max
+    abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+    gen = torch.Generator(device=dev).manual_seed(9)
+    main_err = None
+    cases = [SSD_MAIN] + [(g, 0, *rest) for g, *rest in SSD_EDGES]
+    cases += [cases[-1]] * (SSD_BF16_DRAWS - 1)
+    for G, heads, Q, N, P, dtype in cases:
+        cum, C, B, xdt = ssd_inputs(dev, gen, G, Q, N, P, dtype, heads)
+        got = ops.ssd_intra_chunk(cum, C, B, xdt)
+        want = sc.ssd_intra_chunk_plain(cum, C, B, xdt)
+        bad = sc.launch(cum, C, B, xdt, lib=planted)
+        torch.cuda.synchronize()
+        tol = ops.TOLERANCE["ssd_intra_chunk"][dtype]
+        err = max_abs_err(got, want)
+        top = (cum[..., 0] - cum[..., -1]).flatten()
+        cells = f"({G}, {heads})" if heads else f"{G}"
+        log(f"  ssd_intra_chunk cells {cells} Q={Q} N={N} P={P} {dtype}: "
+            f"max_abs_err {err:.3e} against the plain version (rtol "
+            f"{tol['rtol']:g}, atol {tol['atol']:g}), median |y| "
+            f"{want.abs().median().item():.3e}; largest exponent above the "
+            f"diagonal {top.max().item():.1f} ({int((top > 88.72).sum())} of "
+            f"{top.numel()} cells overflow exp); planted fault "
+            f"{max_abs_err(bad, want):.3e}")
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("ssd_intra_chunk wrote NaN or inf")
+        tol_sees_fault = not torch.allclose(bad, want, **tol)
+        if dtype == torch.bfloat16:
+            excess, pallas = ssd_bf16_reference(cum, C, B, xdt)
+            x_got, x_bad = excess(got), excess(bad)
+
+            def outside(o):
+                return int((~torch.isclose(o, want, **tol)).sum())
+            log(f"    against the function in f32: max |y - y32| / (2^-8 A "
+                f"+ (N + Q) 2^-24 A2) kernel {x_got:.4f} (bound 1), planted "
+                f"fault {x_bad:.4f}; outside ops.TOLERANCE of the {got.numel()} "
+                f"elements: kernel {outside(got)}, the Pallas body's "
+                f"arithmetic in plain PyTorch {outside(pallas)}, planted fault "
+                f"{outside(bad)}; kernel against that arithmetic "
+                f"{max_abs_err(got, pallas):.3e}")
+            if x_got > 1.0:
+                raise RuntimeError("ssd_intra_chunk is off its bf16 bound")
+            if x_bad <= 1.0:
+                raise RuntimeError("the bf16 bound does not see the planted "
+                                   "fault")
+            del excess, pallas
+        # ops.TOLERANCE (the reference suite's) in f32, and in bf16 at the
+        # reference suite's sizes; the bf16 rounding of the scores alone
+        # (the Pallas body's own arithmetic) leaves it at the serving cell
+        # count, where the bound above holds the kernel
+        if dtype == torch.float32 or Q <= 128:
+            torch.testing.assert_close(got, want, **tol)
+            if Q > 64 and not tol_sees_fault:
+                raise RuntimeError("ops.TOLERANCE does not see the planted "
+                                   "fault")
+        if (G, heads, Q, N, P, dtype) == SSD_MAIN:
+            main_err = err
+        del cum, C, B, xdt, got, want, bad
+        torch.cuda.empty_cache()
+    return main_err
+
+
 # -- 4. the main path -----------------------------------------------------------
 def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
     """The paper's EMNIST federation, synthetic and seeded: label-sorted
@@ -437,7 +624,7 @@ def make_trainer(clients, device, agg: str = "auto", compression=None):
         init_params=init_small(cfg, seed=0, device=device), clients=clients,
         local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
         scheme="C", eta0=cfg.eta0, seed=0, engine="plan", agg=agg,
-        compression=compression, device=device)
+        compression=compression, device=device, model_kind=cfg.kind)
 
 
 def check_history(history) -> None:
@@ -548,8 +735,8 @@ def main_path(dev):
     for h in trainer.history:
         log(f"  tau={h.tau} loss={h.loss:.6f} acc={h.acc:.4f} eta={h.eta:.3e} "
             f"n_active={h.n_active} event={h.event!r}")
-    want = {"weighted_agg": ROUNDS, "weighted_agg_quant": 0,
-            "masked_sgd": ROUNDS * n_leaves * E, "flash_attention": 0}
+    want = expected_launches(weighted_agg=ROUNDS,
+                             masked_sgd=ROUNDS * n_leaves * E)
     log(f"  launches {launches}, expected {want} (weighted_agg 1 per round, "
         f"masked_sgd {n_leaves} leaves x E={E} per round)")
     if launches != want:
@@ -604,9 +791,10 @@ def compressed_path(dev, f32_trainer, n_leaves: int, f32_profile):
             log(f"  tau={h.tau} loss={h.loss:.6f} acc={h.acc:.4f} "
                 f"eta={h.eta:.3e} n_active={h.n_active} event={h.event!r}")
         quantized = trainer.compression.quantized
-        want = {"weighted_agg": 0 if quantized else rounds,
-                "weighted_agg_quant": rounds if quantized else 0,
-                "masked_sgd": rounds * n_leaves * E, "flash_attention": 0}
+        want = expected_launches(
+            weighted_agg=0 if quantized else rounds,
+            weighted_agg_quant=rounds if quantized else 0,
+            masked_sgd=rounds * n_leaves * E)
         log(f"  launches {launches}, expected {want}")
         if launches != want:
             raise RuntimeError(f"launch counts {launches} != expected {want}")
@@ -690,19 +878,22 @@ def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(x), e - 8).masked_fill_(x == 0, 0.0)
 
 
-def step_bound(spec, coeffs, flat_a, flat_b) -> torch.Tensor:
+def step_bound(spec, coeffs, flat_a, flat_b, inverse) -> torch.Tensor:
     """Per element d of the flat update, sum_k |c_k| * step_k(d): the most
     that one flipped rounding per client can move it when two sides
     quantize client deltas that agree to f32 noise.  int8: the larger of
-    the two sides' scales of d's chunk; bf16: the larger of the two sides'
-    bf16 spacings at delta_k[d].  All on the CPU."""
+    the two sides' scales of d's chunk, on the wire's buffers (flat_a,
+    flat_b, in the reference's order) and taken back to the port's order by
+    ``inverse``; bf16: the larger of the two sides' bf16 spacings at
+    delta_k[d].  All on the CPU."""
     from repro_torch.core.compression import compress_flat
     c = coeffs.abs()
     D = flat_a.shape[1]
     if spec.quantized:
         scales = torch.maximum(compress_flat(flat_a, spec)[1],
                                compress_flat(flat_b, spec)[1])
-        return (c @ scales).repeat_interleave(spec.chunk)[:D]
+        bound = (c @ scales).repeat_interleave(spec.chunk)[:D]
+        return bound if inverse is None else bound[inverse.cpu()]
     return c @ torch.maximum(bf16_spacing(flat_a), bf16_spacing(flat_b))
 
 
@@ -722,6 +913,7 @@ def wires_against_cpu(dev, params) -> None:
     from repro_torch.configs.paper import EMNIST_CNN as cfg
     from repro_torch.core.aggregation import (aggregate_deltas_flat,
                                               flatten_client_deltas,
+                                              flatten_for_wire,
                                               scheme_coefficients)
     from repro_torch.core.compression import (compress_flat,
                                               resolve_compression, topk_mask)
@@ -746,11 +938,14 @@ def wires_against_cpu(dev, params) -> None:
         f"({time.perf_counter() - t0:.1f} s for both sides' local steps): "
         f"deltas max_abs_err {max_abs_err(flat['card'].cpu(), flat['cpu']):.3e}")
 
-    # the quantizer: the card's deltas quantized on the card and on the CPU
-    card_deltas = flat["card"].cpu()
+    # the quantizer: the card's deltas, on the wire's buffer (the CNN's in
+    # the reference's element order), quantized on the card and on the CPU
+    wire_flat = {side: flatten_for_wire(v[0], v[1], resolve_compression(
+        "int8"), cfg.kind) for side, v in sides.items()}
+    card_deltas = wire_flat["card"][0].cpu()
     for wire in ("int8", "int8-topk"):
         spec = resolve_compression(wire)
-        pc, sc = compress_flat(flat["card"], spec)
+        pc, sc = compress_flat(wire_flat["card"][0], spec)
         ph, sh = compress_flat(card_deltas, spec)
         same = bit_equal(pc.cpu(), ph) and bit_equal(sc.cpu(), sh)
         log(f"  quantizer {wire}: payload {tuple(pc.shape)} and scales "
@@ -760,7 +955,7 @@ def wires_against_cpu(dev, params) -> None:
             raise RuntimeError(f"the {wire} quantizer on the card differs "
                                f"from the CPU's")
     spec = resolve_compression("int8-topk")
-    mc = topk_mask(flat["card"], spec.topk_frac).cpu()
+    mc = topk_mask(wire_flat["card"][0], spec.topk_frac).cpu()
     mh = topk_mask(card_deltas, spec.topk_frac)
     log(f"  top-k mask (frac {spec.topk_frac:g}, {int(mh.sum())} kept), card "
         f"against CPU: "
@@ -775,10 +970,15 @@ def wires_against_cpu(dev, params) -> None:
         for side, (start, deltas, c) in sides.items():
             prm = aggregate_deltas_flat(
                 {k: v.clone() for k, v in start.items()}, deltas, c,
-                compression=spec)
+                compression=spec, model_kind=cfg.kind)
             new[side] = torch.cat([prm[k].reshape(-1).cpu()
                                    for k in sorted(prm)])
-        bound = step_bound(spec, coeffs, card_deltas, flat["cpu"])
+        if spec.quantized:
+            bound = step_bound(spec, coeffs, card_deltas,
+                               wire_flat["cpu"][0], wire_flat["cpu"][1])
+        else:
+            bound = step_bound(spec, coeffs, flat["card"].cpu(), flat["cpu"],
+                               None)
         diff = (new["card"] - new["cpu"]).abs()
         tol = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * new["cpu"].abs()
         stepped = int((diff > tol).sum())
@@ -866,8 +1066,7 @@ def serve_path(dev, planted):
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"weighted_agg": 0, "weighted_agg_quant": 0, "masked_sgd": 0,
-            "flash_attention": cfg.n_layers}
+    want = expected_launches(flash_attention=cfg.n_layers)
     log(f"  launches {launches}, expected {want} (flash_attention one per "
         f"layer per prefill, none per decode step)")
     if launches != want:
@@ -1009,6 +1208,228 @@ def compare_with_chunked(params, cfg, prompts, cache, flash, planted):
     return chunked_s
 
 
+# -- 6b. Mamba2 SSD serving ----------------------------------------------------
+def ssm_prefill_logits(params, cfg, tokens, intra):
+    """The prefill's last-position logits computed layer by layer from the
+    port's building blocks, with ``intra`` as each layer's intra-chunk term
+    (``ops.ssd_intra_chunk``'s signature): with the kernel's wrapper, the
+    model's own arithmetic, step for step."""
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.ssd import mamba_mixer
+    from repro_torch.models.transformer import embed_tokens, logits_fn
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed_tokens(params, cfg, tokens, positions)
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        p = {name: {k: t[i] for k, t in sub.items()}
+             for name, sub in blocks.items()}
+        y, _ = mamba_mixer(p["ssm"], apply_norm(x, p["ln1"], cfg), cfg,
+                           intra=intra)
+        x = x + y
+    x = apply_norm(x, params["final_norm"], cfg)
+    return logits_fn(params, cfg, x[:, -1:])[..., : cfg.vocab]
+
+
+def intra_f64(cum, C, B, xdt):
+    """The intra-chunk term summed in f64, rounded to f32: the reference
+    the kernel's and the plain version's f32 sums are measured against."""
+    Q = cum.shape[-1]
+    cum = cum.double()
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=cum.device).tril()
+    L = torch.where(mask, torch.exp(diff), 0.0)
+    s = torch.einsum("...qn,...sn->...qs", C.double(), B.double()) * L
+    return torch.einsum("...qs,...sp->...qp", s, xdt.double()).float()
+
+
+def compare_ssm_intra(params, cfg, prompts, kernel_logits, planted):
+    """The prefill's logits with the intra-chunk term from the kernel, from
+    its plain version and from the planted fault, against the model with
+    that term summed in f64 (see LOGITS_FACTOR's use in SSM serving)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+    same = ssm_prefill_logits(params, cfg, prompts, ops.ssd_intra_chunk)
+    if not torch.equal(same, kernel_logits):
+        raise RuntimeError(f"the layer-by-layer prefill is "
+                           f"{max_abs_err(same, kernel_logits):.3e} off the "
+                           f"model's")
+    plain = ssm_prefill_logits(params, cfg, prompts, sc.ssd_intra_chunk_plain)
+    ref = ssm_prefill_logits(params, cfg, prompts, intra_f64)
+    bad = ssm_prefill_logits(params, cfg, prompts, lambda *a: sc.launch(
+        *a, lib=planted))
+
+    def errors(lg):
+        return max_abs_err(lg, ref), ((lg - ref).norm() / ref.norm()).item()
+    e_kernel, e_plain, e_bad = errors(same), errors(plain), errors(bad)
+    bound = [LOGITS_FACTOR * e for e in e_plain]
+    log(f"  prefill logits (std {ref.std().item():.3f}) against the model "
+        f"with the intra-chunk term in f64, max_abs_err / relative norm: "
+        f"kernel {e_kernel[0]:.3e} / {e_kernel[1]:.3e}, plain version "
+        f"{e_plain[0]:.3e} / {e_plain[1]:.3e}, planted fault {e_bad[0]:.3e} / "
+        f"{e_bad[1]:.3e}; bound {LOGITS_FACTOR:g}x the plain version's; "
+        f"kernel against plain {max_abs_err(same, plain):.3e}; the "
+        f"layer-by-layer prefill equals the model's")
+
+    def within(e):
+        return e[0] <= bound[0] and e[1] <= bound[1]
+    if not within(e_kernel):
+        raise RuntimeError("the kernel's prefill logits are further from the "
+                           "f64 intra-chunk term than the plain version's "
+                           "f32 error allows")
+    if within(e_bad):
+        raise RuntimeError("the logits' bound does not see the planted fault")
+
+
+def ssm_decode_against_full_forward(params, cfg, prompts, tokens):
+    """The prefill of the prompts and SSM_DECODE_STEPS teacher-forced decode
+    steps, each step's logits against the full forward of all the tokens at
+    its position (tests/test_decode.py's check), in f32 on the serving
+    model's weights upcast; the same in bf16, reported.  Returns the f32
+    max abs error."""
+    from repro_torch.models import transformer
+    B, S = prompts.shape
+    seq = torch.cat([prompts, tokens[:, :SSM_DECODE_STEPS]], dim=1)
+    worst = {}
+    for dtype in ("float32", cfg.dtype):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = params if dtype == cfg.dtype else _to(params, torch.float32)
+        h, _, _ = transformer.model_forward(p, c, seq)
+        full = transformer.logits_fn(p, c, h[:, S - 1:])[..., : c.vocab]
+        del h
+        cache = transformer.init_cache(c, B, seq.shape[1], prompts.device)
+        lg, cache = transformer.prefill(p, c, prompts, cache)
+        steps = [lg]
+        for t in range(S, seq.shape[1]):
+            lg, cache = transformer.decode_step(p, c, cache, seq[:, t:t + 1],
+                                                t)
+            steps.append(lg)
+        got = torch.cat(steps, dim=1)
+        worst[dtype] = max_abs_err(got, full)
+        if dtype == "float32":
+            torch.testing.assert_close(got, full, **DECODE_TOL)
+        del p, cache, full, got
+        torch.cuda.empty_cache()
+    log(f"  prefill of {S} tokens and {seq.shape[1] - S} decode steps against "
+        f"the full forward of {seq.shape[1]} tokens: f32 max_abs_err "
+        f"{worst['float32']:.3e} (rtol {DECODE_TOL['rtol']:g}, atol "
+        f"{DECODE_TOL['atol']:g}); {cfg.dtype} {worst[cfg.dtype]:.3e} "
+        f"(reported)")
+    return worst["float32"]
+
+
+def check_ssm_reduced_against_cpu(dev) -> float:
+    """The reduced config in f32: prefill and four teacher-forced decode
+    steps on the card (the kernel) against the same on the CPU (the plain
+    path), the same weights and tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    cfg = get_config(SSM_ARCH).reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 100),
+                           generator=torch.Generator().manual_seed(0))
+    plain = _prefill_then_decode(params, cfg, tokens, 4, torch.device("cpu"))
+    before = ops.launches["ssd_intra_chunk"]
+    card = _prefill_then_decode(_to(params, dev), cfg, tokens.to(dev), 4, dev)
+    if ops.launches["ssd_intra_chunk"] != before + cfg.n_layers:
+        raise RuntimeError("the reduced prefill on the card did not launch "
+                           "ssd_intra_chunk once per layer")
+    worst = 0.0
+    for a, b in zip(card, plain, strict=True):
+        worst = max(worst, max_abs_err(a.cpu(), b))
+        torch.testing.assert_close(a.cpu(), b, **REDUCED_TOL)
+    log(f"  reduced config in f32 (prefill 96 + 4 decode steps) on the card "
+        f"against the CPU: logits max_abs_err {worst:.3e} (rtol "
+        f"{REDUCED_TOL['rtol']:g}, atol {REDUCED_TOL['atol']:g})")
+    return worst
+
+
+def ssm_serve_path(dev, planted):
+    """mamba2-130m at full width, bf16, through ``serve``: returns the
+    kernels' launch counts over that run and the serving numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, param_count
+    cfg = get_config(SSM_ARCH)
+    B, S = SERVE_BATCH, PROMPT_LEN
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"SSM serving path: {cfg.name} at full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.ssm_n_heads} SSD heads of "
+        f"{cfg.ssm_head_dim}, N {cfg.ssm_d_state}, chunks of "
+        f"{cfg.ssm_chunk}), {param_count(params):,} {cfg.dtype} params; "
+        f"batch {B}, prompt {S}, {GEN} decode steps")
+
+    ops.reset_launches()
+    out = serve(cfg, batch=B, prompt_len=S, gen=GEN, seed=0, device=dev,
+                params=params)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = expected_launches(ssd_intra_chunk=cfg.n_layers)
+    log(f"  launches {launches}, expected {want} (ssd_intra_chunk one per "
+        f"layer per prefill, none per decode step)")
+    if launches != want:
+        raise RuntimeError(f"launch counts {launches} != expected {want}")
+    for name in ("prefill_logits", "logits"):
+        if not bool(torch.isfinite(out[name]).all()):
+            raise RuntimeError(f"non-finite {name} on the SSM serving path")
+    if out["prefill_logits"].shape != (B, 1, cfg.vocab) or \
+            out["tokens"].shape != (B, GEN):
+        raise RuntimeError(f"prefill logits shaped "
+                           f"{tuple(out['prefill_logits'].shape)}, tokens "
+                           f"{tuple(out['tokens'].shape)}")
+    log(f"  prefill {B}x{S}: {out['prefill_s']:.3f} s, "
+        f"{B * S / out['prefill_s']:.1f} tokens/s; decode {GEN} steps: "
+        f"{out['decode_s'] / GEN * 1e3:.3f} ms/step, "
+        f"{B * GEN / out['decode_s']:.1f} tokens/s; memory high-water mark "
+        f"{peak / 2**30:.2f} GiB; sampled ids (seq 0) "
+        f"{out['tokens'][0, :8].tolist()}")
+
+    prompts, cache, tokens = out["prompts"], out["cache"], out["tokens"]
+    kernel_logits = out["prefill_logits"]
+    del out
+    # a prefill alone launches the kernel once per layer, a decode step none
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    transformer.prefill(params, cfg, prompts, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    per_prefill = ops.launches["ssd_intra_chunk"]
+    tok = tokens[:, :1]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(WARM_STEPS):
+        transformer.decode_step(params, cfg, cache, tok, S + i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / WARM_STEPS
+    per_step = ops.launches["ssd_intra_chunk"] / WARM_STEPS
+    log(f"  warm: prefill {prefill_s:.3f} s, {B * S / prefill_s:.1f} "
+        f"tokens/s, {per_prefill} ssd_intra_chunk launches; decode "
+        f"{step_s * 1e3:.3f} ms/step over {WARM_STEPS} steps, {B / step_s:.1f} "
+        f"tokens/s, {per_step:g} launches per step")
+    if per_prefill != cfg.n_layers or per_step != 0:
+        raise RuntimeError("ssd_intra_chunk launches per prefill or per "
+                           "decode step off 24 and 0")
+    profile_card(f"one {cfg.name} prefill {B}x{S}",
+                 lambda: transformer.prefill(params, cfg, prompts, cache))
+
+    def four_steps():
+        for i in range(4):
+            transformer.decode_step(params, cfg, cache, tok, S + i)
+    profile_card(f"4 {cfg.name} decode steps", four_steps)
+
+    compare_ssm_intra(params, cfg, prompts, kernel_logits, planted)
+    ssm_decode_against_full_forward(params, cfg, prompts, tokens)
+    del params, cache
+    torch.cuda.empty_cache()
+    check_ssm_reduced_against_cpu(dev)
+    return launches
+
+
 # -- 7. timing ----------------------------------------------------------------
 def device_ms(fn, n: int) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
@@ -1142,6 +1563,44 @@ def time_weighted_agg_quant(dev, D: int):
                 library_ms=None, composition_ms=composition)
 
 
+def time_ssd_intra_chunk(dev):
+    """The serving prefill's intra-chunk term, one layer's: cells (batch *
+    chunks, heads) in the model's layout (C and B shared by the heads
+    through a stride-0 dim), f32."""
+    from repro_torch.kernels import ssd_chunk as sc
+    gen = torch.Generator(device=dev).manual_seed(10)
+    G, H, Q, N, P, dtype = SSD_MAIN
+    cum, C, B, xdt = ssd_inputs(dev, gen, G, Q, N, P, dtype, H)
+    kernel = device_ms(lambda: sc.launch(cum, C, B, xdt), 20)
+    plain = device_ms(lambda: sc.ssd_intra_chunk_plain(cum, C, B, xdt), 5)
+    # the composition on (cells, Q, n) copies made beforehand (a batched
+    # product cannot read the stride-0 head dim), L built in the call
+    c3, b3, x3 = (t.reshape(G * H, Q, -1).contiguous() for t in (C, B, xdt))
+    cum3 = cum.reshape(G * H, Q)
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=dev).tril()
+
+    def composition():
+        L = torch.where(mask, torch.exp(cum3[:, :, None] - cum3[:, None, :]),
+                        0.0)
+        return torch.bmm(torch.bmm(c3, b3.mT) * L, x3)
+    comp = device_ms(composition, 5)
+    # the (i, j <= i) pairs of every cell, a product of N-long rows and one
+    # of P-long ones each; cum, the group's C and B rows, xdt read once and
+    # the output written once, in f32
+    pairs = G * H * Q * (Q + 1) / 2
+    flops = 2.0 * pairs * (N + P)
+    n_bytes = 4 * (G * H * Q + 2 * G * Q * N + 2 * G * H * Q * P)
+    bound, by = bound_ms(n_bytes, flops)
+    log(f"  ssd_intra_chunk, cells ({G}, {H}) of Q={Q}, N={N}, P={P} f32, "
+        f"C and B shared by the {H} heads: kernel {kernel:.3f} ms "
+        f"({flops / kernel / 1e9:.1f} TFLOP/s causal), bound {bound:.3f} ms "
+        f"by {by}, plain {plain:.3f} ms; no single PyTorch call computes it: "
+        f"the composition torch.bmm(torch.bmm(C, B.mT) * L, xdt), L by "
+        f"torch.where, {comp:.3f} ms")
+    return dict(ms=kernel, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, composition_ms=comp)
+
+
 def main() -> None:
     import_port()
     if not torch.cuda.is_available():
@@ -1162,15 +1621,18 @@ def main() -> None:
             torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on")
 
-    from repro_torch.kernels import flash_attention, weighted_agg
+    from repro_torch.kernels import flash_attention, ssd_chunk, weighted_agg
     t0 = time.perf_counter()
     # the planted faults compile with the others, as controls
     flash_job = start_planted_fault("flash_attention", FLASH_FAULT)
     quant_job = start_planted_fault("weighted_agg_quant", QUANT_FAULT)
+    # both loops over key tiles, the f32 body's and the bf16 body's
+    ssd_job = start_planted_fault("ssd_intra_chunk", SSD_FAULT, sites=2)
     reports = build.build()
     planted = finish_planted_fault(*flash_job, flash_attention.SIGNATURES)
     planted_quant = finish_planted_fault(*quant_job,
                                          weighted_agg.QUANT_SIGNATURES)
+    planted_ssd = finish_planted_fault(*ssd_job, ssd_chunk.SIGNATURES)
     log(f"build: {len(reports)} of {len(build.SOURCES)} sources compiled in "
         f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
     for name, report in reports.items():
@@ -1189,6 +1651,7 @@ def main() -> None:
     flash_err = check_flash_attention(dev, planted)
     quant_err = check_weighted_agg_quant(dev, D, planted_quant)
     check_quant_memory(dev, D)
+    ssd_err = check_ssd_intra_chunk(dev, planted_ssd)
 
     f32_trainer, launches, f32_profile = main_path(dev)
     int8_trainer, int8_launches = compressed_path(
@@ -1197,12 +1660,14 @@ def main() -> None:
     wires_against_cpu(dev, int8_trainer.params)
     del int8_trainer
     serve_launches = serve_path(dev, planted)
+    ssm_launches = ssm_serve_path(dev, planted_ssd)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)
     sgd_t = time_masked_sgd(dev, leaves)
     flash_t = time_flash_attention(dev)
     quant_t = time_weighted_agg_quant(dev, D)
+    ssd_t = time_ssd_intra_chunk(dev)
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
         dict(name="weighted_agg", route="cuda",
@@ -1222,6 +1687,11 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention.py:64",
              launches=serve_launches["flash_attention"],
              max_abs_err=flash_err, **flash_t),
+        dict(name="ssd_intra_chunk", route="cuda",
+             source=f"{csrc}/ssd_intra_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk.py:43",
+             launches=ssm_launches["ssd_intra_chunk"], max_abs_err=ssd_err,
+             **ssd_t),
     ]
     log(card)
     log(json.dumps({"kernels": rows}))

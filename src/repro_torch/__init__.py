@@ -9,8 +9,9 @@ numpy-only modules it keeps as its own copy.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (see :func:`resolve_device`).  The kernels of the
 federated round, ``weighted_agg``, ``masked_sgd`` and, on the int8 wires,
-``weighted_agg_quant``, and the prefill attention of LM serving,
-``flash_attention``, are hand-written CUDA for ``sm_90a``
+``weighted_agg_quant``, the prefill attention of LM serving,
+``flash_attention``, and the intra-chunk term of Mamba2's SSD prefill,
+``ssd_intra_chunk``, are hand-written CUDA for ``sm_90a``
 (``kernels/csrc/``), built with ``nvcc`` at their first launch; CPU
 tensors take their plain PyTorch versions.
 """

@@ -15,7 +15,7 @@ lays the leaves out as the reference's does.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -23,6 +23,7 @@ from repro_torch.core.compression import (compress_flat, resolve_compression,
                                           round_trip)
 from repro_torch.kernels import ops
 from repro_torch.kernels.weighted_agg import padded, row_stride
+from repro_torch.params import reference_order
 
 Params = Dict[str, torch.Tensor]
 
@@ -80,6 +81,28 @@ def flatten_client_deltas(deltas: Params) -> torch.Tensor:
                      + [pad], dim=1)[:, :D]
 
 
+def flatten_for_wire(params: Params, deltas: Params, spec,
+                     model_kind: Optional[str] = None):
+    """The client deltas as the flat (C, D_total) buffer the wire ``spec``
+    carries, and the gather that takes a (D_total,) vector in that order
+    back to the port's (None where it is the port's order).
+
+    A quantized wire cuts the buffer into chunks of one scale each, so its
+    elements lie in the reference's order for a model of ``model_kind``
+    (``PaperModelConfig.kind``, ``params.reference_order``): the CNN's conv
+    weights and ``w1`` rows, which the port keeps in another layout, are
+    gathered into the reference's, and the chunks, scales and codes are the
+    reference's.  Without a kind the buffer keeps the port's order, which
+    is the reference's for every kind but the CNN.  The f32 and bf16 wires
+    are elementwise and keep the port's order."""
+    flat = flatten_client_deltas(deltas)
+    order = (reference_order(params, model_kind)
+             if spec.quantized and model_kind else None)
+    if order is None:
+        return flat, None
+    return flat[:, order[0]], order[1]
+
+
 def _apply_flat(params: Params, agg: torch.Tensor) -> Params:
     """params <- params + agg, the (D_total,) update cut into the leaves in
     sorted-key order.  Updates params in place."""
@@ -93,18 +116,20 @@ def _apply_flat(params: Params, agg: torch.Tensor) -> Params:
 
 def aggregate_deltas_flat(params: Params, deltas: Params,
                           coeffs: torch.Tensor, *,
-                          compression=None) -> Params:
+                          compression=None,
+                          model_kind: Optional[str] = None) -> Params:
     """Same contract as aggregate_deltas, but the whole model is flattened
     into one (C, D_total) buffer and reduced with ONE kernel launch
     (instead of one scaled sum per leaf).  Updates params in place.
 
     compression: optional CompressionSpec/str (core.compression).  The
-    int8 kinds quantize the flat buffer and reduce the (payload, scales)
-    pair with one weighted_agg_quant launch, which dequantizes in
-    registers; bf16 casts the buffer into the bf16 rows weighted_agg
-    reads."""
+    int8 kinds quantize the flat buffer, in the reference's element order
+    (``flatten_for_wire``, for the model of ``model_kind``), and reduce the
+    (payload, scales) pair with one weighted_agg_quant launch, which
+    dequantizes in registers; bf16 casts the buffer into the bf16 rows
+    weighted_agg reads."""
     spec = resolve_compression(compression)
-    flat = flatten_client_deltas(deltas)
+    flat, inverse = flatten_for_wire(params, deltas, spec, model_kind)
     coeffs = coeffs.float()
     if spec.quantized:
         payload, scales = compress_flat(flat, spec)
@@ -114,17 +139,20 @@ def aggregate_deltas_flat(params: Params, deltas: Params,
         if spec.kind == "bf16":
             flat = padded(flat, torch.bfloat16)
         agg = ops.weighted_agg(coeffs, flat)
-    return _apply_flat(params, agg)
+    return _apply_flat(params, agg if inverse is None else agg[inverse])
 
 
 def aggregate_deltas_compressed_ref(params: Params, deltas: Params,
                                     coeffs: torch.Tensor,
-                                    compression) -> Params:
+                                    compression,
+                                    model_kind: Optional[str] = None
+                                    ) -> Params:
     """Plain reference for the compressed flat reduction: quantize ->
     dequantize -> matrix-vector product on the same flat layout and chunk
     grid as the kernel path; only the f32 reduction order differs.  The
     tree path's compressed round (``agg="tree"``).  Updates params in
     place."""
     spec = resolve_compression(compression)
-    flat = round_trip(flatten_client_deltas(deltas), spec)
-    return _apply_flat(params, coeffs.float() @ flat)
+    flat, inverse = flatten_for_wire(params, deltas, spec, model_kind)
+    agg = coeffs.float() @ round_trip(flat, spec)
+    return _apply_flat(params, agg if inverse is None else agg[inverse])

@@ -14,11 +14,12 @@ that wire:
              ``topk_frac`` of the entries survive, the rest quantize to 0.
 
 Quantization runs on the flat (C, D_total) buffer of
-``core.aggregation.flatten_client_deltas``, leaves in sorted-key order and
-each leaf in the port's own layout.  For logistic regression and the MLP
-that is the reference's layout, so the chunk grid and the codes are the
-reference's; the CNN's conv weights and ``w1`` rows lie in another order
-in the port (``repro_torch.params``), so its chunks group other elements.
+``core.aggregation.flatten_for_wire``: leaves in sorted-key order, each in
+the reference's element order.  For logistic regression and the MLP that
+is the port's own layout; the CNN's conv weights and ``w1`` rows lie in
+another order in the port (``repro_torch.params``) and are gathered into
+the reference's, so every model's chunk grid and codes are the
+reference's.
 
 Bit for bit, the codes and scales are the reference's on the same flat
 buffer, and the card's are the CPU's: the scale is max(absmax/levels,

@@ -13,7 +13,7 @@ learning rate supplied per round; each step is masked by alpha[c, e] in
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -39,9 +39,11 @@ def local_sgd(loss_fn: Callable, params: Params, batches, alpha: torch.Tensor,
     C, E = alpha.shape
     names = sorted(params)
     # every client starts from the global params; the (C, ...) copies are
-    # rewritten in place by masked_sgd at each step
-    w = {name: params[name].expand(C, *params[name].shape).contiguous()
-         for name in names}
+    # rewritten in place by masked_sgd at each step.  A clone, not
+    # .contiguous(): at C = 1 the expanded view is already contiguous, and
+    # the steps would write into the caller's params
+    w = {name: params[name].expand(C, *params[name].shape).clone(
+        memory_format=torch.contiguous_format) for name in names}
     for e in range(E):
         with torch.enable_grad():
             leaves = {name: w[name].detach().requires_grad_()
@@ -66,7 +68,8 @@ def local_sgd(loss_fn: Callable, params: Params, batches, alpha: torch.Tensor,
 def fed_round_parallel(loss_fn: Callable, params: Params, batches,
                        alpha: torch.Tensor, coeffs: torch.Tensor,
                        eta: torch.Tensor, *, agg: str = "tree",
-                       compression=None) -> Params:
+                       compression=None,
+                       model_kind: Optional[str] = None) -> Params:
     """batches: dict of (C, E, ...) tensors; alpha: (C, E); coeffs: (C,).
     Returns the new params, written into ``params`` in place.
 
@@ -78,15 +81,17 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
     through the wire format right after the local steps.  On the flat
     layout the weighted_agg_quant kernel takes the int8 payload as it is
     (bf16: a cast into weighted_agg); on the tree layout the plain
-    reference round-trips the same quantization lattice."""
+    reference round-trips the same quantization lattice.  model_kind: the
+    paper model's ``kind``, which fixes the quantized wire's element order
+    (``core.aggregation.flatten_for_wire``)."""
     spec = resolve_compression(compression)
     deltas = local_sgd(loss_fn, params, batches, alpha, eta)
     if agg == "flat":
         return aggregate_deltas_flat(params, deltas, coeffs,
-                                     compression=spec)
+                                     compression=spec, model_kind=model_kind)
     if agg == "tree":
         if spec.active:
             return aggregate_deltas_compressed_ref(params, deltas, coeffs,
-                                                   spec)
+                                                   spec, model_kind)
         return aggregate_deltas(params, deltas, coeffs)
     raise ValueError(f"agg must be tree|flat, got {agg!r}")

@@ -74,7 +74,9 @@ class FederatedTrainer:
     device unless ``device="cpu"``); the trainer's own copy is updated in
     place round by round.  ``compression`` (None, a string such as
     ``"int8"``, or a ``CompressionSpec``) is the wire format of the client
-    deltas (``core/compression.py``).
+    deltas (``core/compression.py``); ``model_kind`` (the model's
+    ``PaperModelConfig.kind``) fixes a quantized wire's element order, the
+    reference's for the CNN too (``core.aggregation.flatten_for_wire``).
     """
 
     def __init__(self, *, loss_fn: Callable,
@@ -85,7 +87,8 @@ class FederatedTrainer:
                  horizon: Optional[int] = None,
                  bound_terms: Optional[BoundTerms] = None,
                  seed: int = 0, engine: str = "plan", agg: str = "auto",
-                 compression=None, device=None):
+                 compression=None, device=None,
+                 model_kind: Optional[str] = None):
         if engine not in ("plan", "host"):
             raise ValueError(f"engine must be plan|host, got {engine!r}")
         self.device = resolve_device(device)
@@ -105,6 +108,7 @@ class FederatedTrainer:
             D=5.0, V=20.0, gamma=10.0, E=local_epochs)
         self.rng = np.random.default_rng(seed)
         self.compression = resolve_compression(compression)
+        self.model_kind = model_kind
         self.engine_mode = engine
         self.agg = agg
         self._scheduler = None
@@ -201,7 +205,7 @@ class FederatedTrainer:
                 torch.from_numpy(alpha).to(dev),
                 torch.from_numpy(coeffs).to(dev),
                 torch.tensor(eta, dtype=torch.float32, device=dev),
-                compression=self.compression)
+                compression=self.compression, model_kind=self.model_kind)
             loss = acc = float("nan")
             if tau % eval_every == 0 or ev:
                 loss, acc = self.evaluate()
@@ -234,7 +238,7 @@ class FederatedTrainer:
                 loss_fn=self.loss_fn, clients=self.clients,
                 local_epochs=self.E, batch_size=self.B, scheme=self.scheme,
                 eta0=self.eta0, agg=self.agg, device=self.device,
-                compression=self.compression)
+                compression=self.compression, model_kind=self.model_kind)
             self._scheduler = StreamScheduler(
                 clients=self.clients, init_params=self.params, engine=engine,
                 reboot_boost=self.reboot_boost, fast_reboot=self.fast_reboot,

@@ -45,7 +45,9 @@ class RoundEngine:
     clients and the per-leaf reduction is cheaper; on a quantized wire
     (``compression="int8"`` or ``"int8-topk"``) it picks ``"flat"`` on the
     CPU too, as the reference does: the plain version reduces the int8
-    payload as it is.
+    payload as it is.  ``model_kind`` (``PaperModelConfig.kind``) fixes
+    the quantized wire's element order: the CNN's is gathered into the
+    reference's (``core.aggregation.flatten_for_wire``).
     """
 
     def __init__(self, *, clients, local_epochs: int, batch_size: int,
@@ -53,7 +55,7 @@ class RoundEngine:
                  eta0: float = 0.01, agg: str = "auto",
                  capacity: Optional[int] = None,
                  max_samples: Optional[int] = None, device=None,
-                 compression=None):
+                 compression=None, model_kind: Optional[str] = None):
         if (task is None) == (loss_fn is None):
             raise ValueError("pass exactly one of task= or loss_fn=")
         if task is None:
@@ -74,6 +76,7 @@ class RoundEngine:
                                   device=self.device)
         # the delta wire format (core/compression)
         self.compression = resolve_compression(compression)
+        self.model_kind = model_kind
         if agg == "auto":
             agg = ("flat" if self.device.type == "cuda"
                    or self.compression.quantized else "tree")
@@ -166,7 +169,8 @@ class RoundEngine:
         eta = self._eta0 / torch.clamp((tau + 1 - lr_shift).float(), min=1.0)
         params = fed_round_parallel(self.loss_fn, params, batches, alpha,
                                     coeffs, eta, agg=self.agg,
-                                    compression=self.compression)
+                                    compression=self.compression,
+                                    model_kind=self.model_kind)
         return params, s, eta
 
     # -- host entry point -----------------------------------------------------

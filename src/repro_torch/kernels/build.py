@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Mapping, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("weighted_agg", "weighted_agg_quant", "masked_sgd",
-           "flash_attention")
+           "flash_attention", "ssd_intra_chunk")
 # -Xptxas -v reports each kernel's registers, shared memory and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

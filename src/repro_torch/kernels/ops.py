@@ -9,10 +9,14 @@ wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels.  ``TOLERANCE`` holds the
 tolerance of each kernel, per dtype of its data, against its plain version
 on the card and against the reference's Pallas kernel in the CPU tests
-(the reference suite's own values, ``tests/test_kernels.py:22-23``, ``:36``,
-``:100-101`` and ``:195-196``); ``chip_smoke.py`` and the tests read both
-from here.  ``weighted_agg_quant`` and its plain version make the same
-roundings in the same order, so on the card the two must be equal.
+(the reference suite's own values, ``tests/test_kernels.py:22-23``,
+``:36``, ``:100-101``, ``:195-196`` and ``:222-228``); ``chip_smoke.py`` and
+the tests read both from here.  ``weighted_agg_quant`` and its plain
+version make the same roundings in the same order, so on the card the two
+must be equal.  ``ssd_intra_chunk``'s bf16 entry is the reference suite's
+for its sizes (Q up to 128); at a prefill's thousands of Q = 256 cells the
+bf16 rounding of the scores alone can leave it, and ``chip_smoke.py``
+holds the kernel there to that rounding's own bound.
 """
 from __future__ import annotations
 
@@ -22,10 +26,12 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import masked_sgd as _sgd
+from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import weighted_agg as _agg
 
 launches: Dict[str, int] = {"weighted_agg": 0, "weighted_agg_quant": 0,
-                            "masked_sgd": 0, "flash_attention": 0}
+                            "masked_sgd": 0, "flash_attention": 0,
+                            "ssd_intra_chunk": 0}
 
 TOLERANCE = {
     "weighted_agg": {torch.float32: dict(rtol=1e-6, atol=1e-5),
@@ -35,6 +41,8 @@ TOLERANCE = {
                    torch.bfloat16: dict(rtol=2e-2, atol=1e-5)},
     "flash_attention": {torch.float32: dict(rtol=2e-5, atol=1e-5),
                         torch.bfloat16: dict(rtol=3e-2, atol=3e-2)},
+    "ssd_intra_chunk": {torch.float32: dict(rtol=1e-5, atol=1e-5),
+                        torch.bfloat16: dict(rtol=6e-2, atol=0.4)},
 }
 
 
@@ -99,4 +107,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _flash.flash_attention_plain(q, k, v, causal)
     out = _flash.launch(q, k, v, causal)
     launches["flash_attention"] += 1
+    return out
+
+
+def ssd_intra_chunk(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
+                    xdt: torch.Tensor) -> torch.Tensor:
+    """cum (G, Q) f32, C and B (G, Q, N), xdt (G, Q, P) in f32 or bf16 ->
+    (G, Q, P) f32: per cell ((C B^T) * L) xdt with L[i, j] = exp(cum[i] -
+    cum[j]) for j <= i, else 0 (the SSD intra-chunk term).  The cells may
+    also come as (Go, Gi), e.g. C and B expanded over the heads of a group
+    with stride 0; the output is then (Go, Gi, Q, P)."""
+    _ssd.check_args(cum, C, B, xdt)
+    if not _on_card(C, "ssd_intra_chunk"):
+        return _ssd.ssd_intra_chunk_plain(cum, C, B, xdt)
+    out = _ssd.launch(cum, C, B, xdt)
+    launches["ssd_intra_chunk"] += 1
     return out

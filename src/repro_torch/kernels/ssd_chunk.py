@@ -1,0 +1,127 @@
+"""``ssd_intra_chunk``: the CUDA kernel's launch and its plain PyTorch version.
+
+For each cell g (one batch row, chunk and head of Mamba2's chunked SSD):
+y[g] = ((C[g] B[g]^T) * L[g]) xdt[g] with L[g][i, j] = exp(cum[g, i] -
+cum[g, j]) for j <= i and 0 above the diagonal; cum (G, Q) f32, C and B
+(G, Q, N), xdt (G, Q, P) in f32 or bf16, the output (G, Q, P) in f32.
+
+The kernel (``csrc/ssd_intra_chunk.cu``) replaces the Pallas kernel
+``repro/kernels/ssd_chunk.py:43``; its source says what bounds it and how
+its design answers that.  Besides the reference's (G, ...) cells it takes
+cells split as (outer, inner), ``cum`` (Go, Gi, Q) and the others
+(Go, Gi, Q, ...), each read through its strides with the last dim
+contiguous: the heads of one SSD group then read the group's B and C rows
+through a stride-0 inner dim (an ``expand`` view), with no per-head copy.
+For such cells it writes its output into a (Go, Q, Gi, P) buffer and
+returns the (Go, Gi, Q, P) view of it, the layout ``models.ssd`` adds the
+inter-chunk term to.  Callers go through
+``repro_torch.kernels.ops.ssd_intra_chunk``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_FN = {torch.float32: "ssd_intra_chunk_f32",
+       torch.bfloat16: "ssd_intra_chunk_bf16"}
+SIGNATURES = {fn: (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
+              + (ctypes.c_void_p,) for fn in _FN.values()}
+MAX_N = 256
+WIDE_P = (32, 64, 128)      # P above 16 the kernel takes
+MAX_GRID = 2 ** 31 - 1      # the CUDA grid's x limit: cells * query tiles
+BQ = 64                     # query rows per CTA
+
+
+def check_args(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
+               xdt: torch.Tensor) -> None:
+    """Shapes and dtypes both versions take: cum (G, Q), C and B (G, Q, N),
+    xdt (G, Q, P), or the same with the cells as (Go, Gi); cum f32, the
+    others one dtype in f32/bf16; N at most MAX_N, P at most 16 or one of
+    WIDE_P; one device."""
+    cells = cum.shape[:-1]
+    if cum.dim() not in (2, 3) or C.shape != B.shape \
+            or C.dim() != cum.dim() + 1 or xdt.dim() != C.dim() \
+            or C.shape[:-1] != cum.shape or xdt.shape[:-1] != cum.shape:
+        raise ValueError(f"ssd_intra_chunk takes cum (G, Q), C and B (G, Q, "
+                         f"N), xdt (G, Q, P), or the cells as (Go, Gi), got "
+                         f"{tuple(cum.shape)}, {tuple(C.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(xdt.shape)}")
+    N, P = C.shape[-1], xdt.shape[-1]
+    if not (1 <= N <= MAX_N and (1 <= P <= 16 or P in WIDE_P)):
+        raise ValueError(f"ssd_intra_chunk takes N in [1, {MAX_N}] and P at "
+                         f"most 16 or in {WIDE_P}, got N={N}, P={P} "
+                         f"(cells {tuple(cells)})")
+    if cum.dtype != torch.float32 or C.dtype not in _FN \
+            or B.dtype != C.dtype or xdt.dtype != C.dtype:
+        raise TypeError(f"ssd_intra_chunk takes cum in f32 and C, B, xdt of "
+                        f"one dtype in f32/bf16, got {cum.dtype}, {C.dtype}, "
+                        f"{B.dtype}, {xdt.dtype}")
+    if not cum.device == C.device == B.device == xdt.device:
+        raise ValueError(f"cum on {cum.device}, C on {C.device}, B on "
+                         f"{B.device}, xdt on {xdt.device}")
+
+
+def ssd_intra_chunk_plain(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
+                          xdt: torch.Tensor) -> torch.Tensor:
+    """The reference's oracle (``repro/kernels/ref.py:29``) in plain
+    PyTorch, for any leading cell dims: everything in f32, the decay taken
+    where j <= i and 0 above the diagonal."""
+    cum = cum.float()
+    Q = cum.shape[-1]
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=cum.device).tril()
+    L = torch.where(mask, torch.exp(diff), 0.0)
+    s = torch.einsum("...qn,...sn->...qs", C.float(), B.float()) * L
+    return torch.einsum("...qs,...sp->...qp", s, xdt.float())
+
+
+def _strides(t: torch.Tensor, name: str, last_contiguous: bool = True):
+    """(outer, inner, row) element strides of a (Go, Gi, Q[, n]) view."""
+    if last_contiguous and t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"the ssd_intra_chunk kernel reads {name} with its "
+                         f"last dim contiguous, got strides {t.stride()}")
+    return t.stride()[:3]
+
+
+def launch(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
+           xdt: torch.Tensor, lib=None) -> torch.Tensor:
+    """One launch of the CUDA kernel on PyTorch's current stream; returns
+    the f32 output, (G, Q, P), or for (Go, Gi) cells the (Go, Gi, Q, P)
+    view of a (Go, Q, Gi, P) buffer.  Raises on arguments the kernel does
+    not take and when the launch is refused.  ``lib`` is the library to
+    launch from, by default the one built from ``csrc/ssd_intra_chunk.cu``;
+    another one (opened with ``SIGNATURES``) must have the same C
+    interface."""
+    if not C.is_cuda:
+        raise ValueError(f"the ssd_intra_chunk kernel takes CUDA tensors, got "
+                         f"{C.device}")
+    split = cum.dim() == 3
+    if split:
+        Go, Gi, Q = cum.shape
+        out = torch.empty(Go, Q, Gi, xdt.shape[-1], dtype=torch.float32,
+                          device=C.device).transpose(1, 2)
+    else:
+        (Go, Q), Gi = cum.shape, 1
+        out = torch.empty(Go, Q, xdt.shape[-1], dtype=torch.float32,
+                          device=C.device)
+        cum, C, B, xdt, out = (t.unsqueeze(1) for t in (cum, C, B, xdt, out))
+    N, P = C.shape[-1], xdt.shape[-1]
+    if Go * Gi * -(-Q // BQ) > MAX_GRID:
+        raise ValueError(f"ssd_intra_chunk takes at most {MAX_GRID} cells "
+                         f"times query tiles, got {Go * Gi} cells of Q={Q}")
+    strides = (ctypes.c_int64 * 15)(
+        *_strides(cum, "cum", False), *_strides(C, "C"), *_strides(B, "B"),
+        *_strides(xdt, "xdt"), *_strides(out, "out"))
+    lib = lib or build.load("ssd_intra_chunk", SIGNATURES)
+    fn = getattr(lib, _FN[C.dtype])
+    with torch.cuda.device(C.device):
+        err = fn(cum.data_ptr(), C.data_ptr(), B.data_ptr(), xdt.data_ptr(),
+                 out.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), Go,
+                 Gi, Q, N, P, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_intra_chunk launch failed with CUDA error "
+                           f"{err}")
+    return out if split else out.squeeze(1)

@@ -1,10 +1,16 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens
-step by step against the KV cache; counterpart of
+step by step against the cache (KV or SSM state); counterpart of
 ``repro/launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --batch 4 --prompt-len 4096 --gen 32                         # the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --full --batch 4 --prompt-len 4096 --gen 32
+
+``--arch`` takes the architectures the port runs
+(``repro_torch.configs.PORTED_IDS``): nemotron-4-15b (dense GQA) and
+mamba2-130m (Mamba2 SSD, whose prefill runs the ssd_intra_chunk kernel).
 
 Runs on the CUDA device unless ``--device cpu`` is given.  Weights are
 random, drawn from ``--seed``; so are the prompts and the sampled tokens
@@ -80,7 +86,9 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="nemotron-4-15b")
+    ap.add_argument("--arch", default="nemotron-4-15b",
+                    help="an architecture the port runs: nemotron-4-15b, "
+                         "mamba2-130m")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)

@@ -1,3 +1,3 @@
 """The paper's models (``small``) and the LM serving path of the dense GQA
-family (``common``, ``rotary``, ``params``, ``attention``, ``blocks``,
-``transformer``)."""
+and Mamba2 SSD families (``common``, ``rotary``, ``params``, ``attention``,
+``ssd``, ``blocks``, ``transformer``)."""

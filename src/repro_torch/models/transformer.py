@@ -3,10 +3,10 @@ counterpart of ``repro/models/transformer.py`` for serving.
 
 The reference scans its stacked (L, ...) layer parameters with
 ``lax.scan``; here a Python loop indexes them layer by layer (views, no
-copies).  The KV cache is written in place (see
-``attention.gqa_attention``), so ``prefill`` and ``decode_step`` return
-the cache they were given.  The training loss and multi-token prediction
-come with the training slice of the port.
+copies).  The KV and SSM caches are written in place (see
+``attention.gqa_attention`` and ``ssd.mamba_mixer``), so ``prefill`` and
+``decode_step`` return the cache they were given.  The training loss and
+multi-token prediction come with the training slice of the port.
 """
 from __future__ import annotations
 
@@ -85,16 +85,28 @@ def model_forward(params, cfg: ArchConfig, tokens, *, positions=None,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """Stacked per-layer attention caches, the kv dim flattened (KV*hd),
-    ``pos_map`` -1 for empty slots; a ring buffer of ``sliding_window``
-    slots for SWA archs, on ``device`` (the CUDA device unless the CPU
-    is asked for)."""
+    """Stacked per-layer caches on ``device`` (the CUDA device unless the
+    CPU is asked for).  Attention: the kv dim flattened (KV*hd),
+    ``pos_map`` -1 for empty slots, a ring buffer of ``sliding_window``
+    slots for SWA archs.  SSM: the last K-1 conv inputs (``cfg.dtype``) and
+    the f32 state."""
     check_ported(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
     slots = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     cache = {}
-    for name, _kind, L in block_kinds(cfg):
+    for name, kind, L in block_kinds(cfg):
+        if kind == "ssm":
+            G, N = cfg.ssm_n_groups, cfg.ssm_d_state
+            hg = cfg.ssm_n_heads // G
+            conv_ch = cfg.d_inner + 2 * G * N
+            cache[name] = {"ssm": {
+                "conv": torch.zeros(L, batch, cfg.ssm_d_conv - 1, conv_ch,
+                                    dtype=dtype, device=device),
+                "state": torch.zeros(L, batch, G, hg, cfg.ssm_head_dim, N,
+                                     dtype=torch.float32, device=device),
+            }}
+            continue
         width = cfg.n_kv_heads * cfg.head_dim
         cache[name] = {"attn": {
             "k": torch.zeros(L, batch, slots, width, dtype=dtype,

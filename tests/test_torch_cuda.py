@@ -209,3 +209,71 @@ def test_quantizer_on_the_card_equals_the_cpu(card):
         ph, sh = compress_flat(flat.cpu(), spec)
         assert torch.equal(pc.cpu(), ph)
         assert torch.equal(sc.cpu().view(torch.int32), sh.view(torch.int32))
+
+
+def _ssd_inputs(card, G, Q, N, P, dtype, seed):
+    """cum from mamba2's step sizes and decay rates (dt in [1e-3, 1e-1], A
+    in [-16, -1]), so cum_i - cum_j above the diagonal overflows exp; C, B
+    and xdt normal."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    dt = torch.exp(torch.empty(G, Q, device=card).uniform_(
+        -6.907755, -2.302585, generator=gen))
+    A = -torch.empty(G, 1, device=card).uniform_(1.0, 16.0, generator=gen)
+    cum = torch.cumsum(dt * A, dim=-1)
+    C, B = (torch.randn(G, Q, N, device=card, generator=gen).to(dtype)
+            for _ in range(2))
+    xdt = torch.randn(G, Q, P, device=card, generator=gen).to(dtype)
+    return cum, C, B, xdt
+
+
+SSD_SHAPES = [(96, 256, 128, 64), (6, 16, 8, 8), (6, 64, 32, 16),
+              (6, 128, 64, 64), (12, 1, 128, 64), (12, 100, 128, 64),
+              (12, 32, 16, 32), (5, 200, 40, 128), (3, 70, 7, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Q,N,P", SSD_SHAPES)
+def test_ssd_intra_chunk_kernel_matches_plain(card, G, Q, N, P, dtype):
+    from repro_torch.kernels.ssd_chunk import ssd_intra_chunk_plain
+    cum, C, B, xdt = _ssd_inputs(card, G, Q, N, P, dtype, G + Q + N + P)
+    before = ops.launches["ssd_intra_chunk"]
+    got = ops.ssd_intra_chunk(cum, C, B, xdt)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_intra_chunk"] == before + 1
+    assert got.shape == (G, Q, P) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ssd_intra_chunk_plain(cum, C, B, xdt),
+                               **ops.TOLERANCE["ssd_intra_chunk"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel_reads_group_shared_rows(card, dtype):
+    """The model's layout: (batch*chunks, heads) cells, C and B of one
+    group expanded over its heads with stride 0, xdt a strided view of
+    (batch*chunks, Q, heads, P); the output a view of (.., Q, heads, P)."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra_chunk_plain
+    Go, H, Q, N, P = 6, 4, 256, 128, 64
+    cum, C, B, _ = _ssd_inputs(card, Go * H, Q, N, P, dtype, 11)
+    cum = cum.view(Go, H, Q)
+    C = C.view(Go, H, Q, N)[:, :1].expand(Go, H, Q, N)
+    B = B.view(Go, H, Q, N)[:, :1].expand(Go, H, Q, N)
+    gen = torch.Generator(device=card).manual_seed(12)
+    xdt = torch.randn(Go, Q, H, P, device=card, generator=gen).to(dtype) \
+        .transpose(1, 2)
+    got = ops.ssd_intra_chunk(cum, C, B, xdt)
+    torch.cuda.synchronize()
+    assert got.shape == (Go, H, Q, P) and got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, ssd_intra_chunk_plain(cum, C, B, xdt),
+                               **ops.TOLERANCE["ssd_intra_chunk"][dtype])
+
+
+def test_ssd_intra_chunk_kernel_refuses_what_it_cannot_read(card):
+    cum = torch.zeros(2, 16, device=card)
+    x = torch.zeros(2, 16, 48, device=card)
+    with pytest.raises(ValueError, match="P at most 16"):
+        ops.ssd_intra_chunk(cum, x, x, x)
+    y = torch.zeros(2, 16, 32, device=card)
+    with pytest.raises(TypeError):
+        ops.ssd_intra_chunk(cum, y, y, y.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_intra_chunk(cum, y[..., ::2], y[..., ::2], y)

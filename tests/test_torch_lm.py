@@ -64,14 +64,17 @@ def _same_fields(cfg, jcfg):
     assert cfg.vocab_padded == jcfg.vocab_padded
 
 
-def test_config_and_reduced_match_reference():
-    jcfg = jget_config(ARCH)
-    _same_fields(get_config(ARCH), jcfg)
-    _same_fields(get_config(ARCH).reduced(), jcfg.reduced())
-    assert get_config(ARCH).attn_impl == "chunked"
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "mamba2-130m"])
+def test_config_and_reduced_match_reference(arch):
+    jcfg = jget_config(arch)
+    _same_fields(get_config(arch), jcfg)
+    _same_fields(get_config(arch).reduced(), jcfg.reduced())
+    assert get_config(arch).attn_impl == "chunked"
+    assert (get_config(arch).d_inner, get_config(arch).ssm_n_heads) == \
+        (jcfg.d_inner, jcfg.ssm_n_heads)
     # the reference's fields the port leaves out hold their defaults in
-    # its nemotron-4-15b: the port drops no setting of this architecture
-    kept = {f.name for f in dataclasses.fields(get_config(ARCH))}
+    # the architecture: the port drops no setting of it
+    kept = {f.name for f in dataclasses.fields(get_config(arch))}
     default = type(jcfg)(name="", family="dense", n_layers=1, d_model=1,
                          vocab=1)
     for f in dataclasses.fields(jcfg):
@@ -81,13 +84,13 @@ def test_config_and_reduced_match_reference():
 
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="later slices"):
-        get_config("gemma-7b")
+        get_config("hymba-1.5b")
     cfg = dataclasses.replace(get_config(ARCH).reduced(), family="moe")
     with pytest.raises(NotImplementedError, match="later slices"):
         init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="later slices"):
         block_apply({}, torch.zeros(1, 1, 8), get_config(ARCH).reduced(),
-                    "ssm", torch.zeros(1))
+                    "hybrid", torch.zeros(1))
 
 
 # -- (b) building blocks ------------------------------------------------------

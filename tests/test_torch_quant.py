@@ -9,8 +9,9 @@
   (tests/test_kernels.py:123-150): no op run by the wrapper outputs an f32
   tensor of K*D elements or more;
 - ``aggregate_deltas_flat`` on each wire and ``aggregate_deltas_compressed_ref``
-  on the same deltas as the reference's: the same flat buffer, so the same
-  codes, at the aggregation tolerance of tests/test_torch_aggregation.py;
+  on the same deltas as the reference's, carried across with ``from_jax``:
+  the same reference-ordered flat buffer, so the same codes, at the
+  aggregation tolerance of tests/test_torch_aggregation.py;
 - the trainer on each wire, plan and host engines, teacher-forced: before
   every round the reference's parameters are copied into the port; the
   round records must be equal, and after the round every parameter within
@@ -31,7 +32,6 @@ from repro.core import compression as R
 from repro.core.aggregation import (aggregate_deltas_compressed_ref,
                                     aggregate_deltas_flat,
                                     flatten_client_deltas)
-from repro.core.fed_step import local_sgd as ref_local_sgd
 from repro.core.participation import TRACES
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracles
@@ -45,7 +45,7 @@ from repro_torch.fed import driver as port_driver
 from repro_torch.fed import engine as port_engine
 from repro_torch.kernels import ops
 from repro_torch.models import small as port_small
-from repro_torch.params import from_jax
+from repro_torch.params import from_jax, reference_order, to_numpy
 
 from test_torch_aggregation import AGG_TOL
 from test_torch_trainer import PARAM_TOL, _clients, port_eval, ref_eval
@@ -159,13 +159,25 @@ def _deltas(cfg, C, seed):
     return params, deltas
 
 
+def _port_deltas(deltas, pcfg):
+    """Client-stacked deltas in the reference's layout -> the port's,
+    converted client by client with ``from_jax``."""
+    C = next(iter(deltas.values())).shape[0]
+    rows = [from_jax({k: v[c] for k, v in deltas.items()}, pcfg, "cpu")
+            for c in range(C)]
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
 @pytest.mark.parametrize("wire", WIRES)
 @pytest.mark.parametrize("kind", sorted(CONFIGS))
 def test_compressed_aggregation_matches_reference(kind, wire):
-    """The reference's own deltas and params carried across as they are
-    (the aggregation reads leaves in sorted-key order whatever their
-    shapes): the same flat buffer and chunk grid, so the same codes."""
-    params, deltas = _deltas(CONFIGS[kind], 4, seed=5)
+    """The reference's own deltas and params carried across with
+    ``from_jax`` (the CNN's into the port's layout): the wire gathers the
+    flat buffer into the reference's order, so the same chunk grid and the
+    same codes."""
+    cfg = CONFIGS[kind]
+    pcfg = port_configs.PAPER_CONFIGS[cfg.name]
+    params, deltas = _deltas(cfg, 4, seed=5)
     coeffs = np.array([0.5, 0.0, 1.25, 0.3], np.float32)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     jd = {k: jnp.asarray(v) for k, v in deltas.items()}
@@ -175,17 +187,51 @@ def test_compressed_aggregation_matches_reference(kind, wire):
                                                wire)
 
     def port(fn, **kw):
-        return fn({k: torch.tensor(v) for k, v in params.items()},
-                  {k: torch.tensor(v) for k, v in deltas.items()},
-                  torch.from_numpy(coeffs), **kw)
-    got_flat = port(port_agg.aggregate_deltas_flat, compression=wire)
+        return to_numpy(fn(from_jax(params, pcfg, "cpu"),
+                           _port_deltas(deltas, pcfg),
+                           torch.from_numpy(coeffs), **kw), pcfg)
+    got_flat = port(port_agg.aggregate_deltas_flat, compression=wire,
+                    model_kind=pcfg.kind)
     got_ref = port(port_agg.aggregate_deltas_compressed_ref,
-                   compression=wire)
+                   compression=wire, model_kind=pcfg.kind)
     for got, want in ((got_flat, want_flat), (got_ref, want_ref),
                       (got_flat, want_ref)):
         for k in want:
-            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+            np.testing.assert_allclose(got[k], np.asarray(want[k]),
                                        err_msg=k, **AGG_TOL)
+
+
+@pytest.mark.parametrize("wire", ["int8", "int8-topk", "int8:chunk=100"])
+@pytest.mark.parametrize("kind", sorted(CONFIGS))
+def test_wire_payload_and_scales_equal_the_reference_bit_for_bit(kind,
+                                                                  wire):
+    """On the same deltas, carried across with ``from_jax``, the port's
+    wire buffer holds the reference's flat buffer element for element, and
+    its payload and scales are the reference's bit for bit (the CNN's
+    included, whose layout differs)."""
+    cfg = CONFIGS[kind]
+    pcfg = port_configs.PAPER_CONFIGS[cfg.name]
+    params, deltas = _deltas(cfg, 4, seed=9)
+    ref_flat = flatten_client_deltas({k: jnp.asarray(v)
+                                      for k, v in deltas.items()})
+    ref_payload, ref_scales = R.compress_flat(ref_flat,
+                                              R.resolve_compression(wire))
+    spec = P.resolve_compression(wire)
+    port_params = from_jax(params, pcfg, "cpu")
+    flat, inverse = port_agg.flatten_for_wire(
+        port_params, _port_deltas(deltas, pcfg), spec, pcfg.kind)
+    assert (inverse is None) == (kind != "cnn")
+    # the order comes from the model's kind, not from its leaves' names
+    assert reference_order(port_params, "mlp") is None
+    assert torch.equal(flat, torch.tensor(np.asarray(ref_flat)))
+    payload, scales = P.compress_flat(flat, spec)
+    np.testing.assert_array_equal(payload.numpy(), np.asarray(ref_payload))
+    np.testing.assert_array_equal(scales.numpy().view(np.int32),
+                                  np.asarray(ref_scales).view(np.int32))
+    # the inverse gather takes the reference's order back to the port's
+    if inverse is not None:
+        port_flat = port_agg.flatten_client_deltas(_port_deltas(deltas, pcfg))
+        assert torch.equal(flat[:, inverse], port_flat)
 
 
 @pytest.mark.parametrize("wire", ["int8", "int8-topk"])
@@ -211,52 +257,30 @@ def _bf16_spacing(x: torch.Tensor) -> torch.Tensor:
 
 
 def _steps(spec, flat: torch.Tensor) -> torch.Tensor:
-    """Per client and element of a flat (C, D) delta buffer: its code step
-    on the wire, the scale of its chunk (int8) or the bf16 spacing at it."""
+    """Per client and element of a flat (C, D) delta buffer in the wire's
+    order: its code step on the wire, the scale of its chunk (int8) or the
+    bf16 spacing at it."""
     if spec.quantized:
         scales = P.compress_flat(flat, spec)[1]
         return scales.repeat_interleave(spec.chunk, 1)[:, :flat.shape[1]]
     return _bf16_spacing(flat)
 
 
-def _port_order(ref_flat: np.ndarray, shapes, pcfg) -> torch.Tensor:
-    """A (C, D) buffer in the reference's flat order -> the port's: cut into
-    the reference's leaves, converted client by client, flattened again."""
-    rows = []
-    for row in ref_flat:
-        leaves, off = {}, 0
-        for k in sorted(shapes):
-            n = int(np.prod(shapes[k]))
-            leaves[k] = row[off:off + n].reshape(shapes[k])
-            off += n
-        p = from_jax(leaves, pcfg, "cpu")
-        rows.append(torch.cat([p[k].reshape(-1) for k in sorted(p)]))
-    return torch.stack(rows)
-
-
-def _step_bound(wire, cfg, pcfg, call, ref_params) -> torch.Tensor:
+def _step_bound(wire, pcfg, call) -> torch.Tensor:
     """sum_k |c_k| * step_k(d) over the round's clients, in the port's flat
     order: the most that one flipped rounding per client can move element
     d of the update when the two packages quantize deltas that agree to
-    f32 noise.  step_k(d) is the larger of the two packages' steps: each
-    quantizes on its own flat layout, which for the CNN orders the conv
-    and w1 elements differently, so the reference's scale of d comes from
-    its own deltas on its own chunk grid."""
+    f32 noise.  step_k(d) is the port's own step: both packages cut the
+    same reference-ordered buffer into the same chunks."""
     spec = P.resolve_compression(wire)
     params, batches, alpha, coeffs, eta = call
     port_deltas = port_local_sgd(port_small.make_loss_fn(pcfg), params,
                                  batches, alpha, eta)
-    ref_deltas = jax.vmap(lambda b, a: ref_local_sgd(
-        make_loss_fn(cfg), {k: jnp.asarray(v) for k, v in ref_params.items()},
-        b, a, jnp.float32(eta.item())))(
-        {k: jnp.asarray(v.numpy()) for k, v in batches.items()},
-        jnp.asarray(alpha.numpy()))
-    ref_flat = np.asarray(flatten_client_deltas(ref_deltas))
-    ref_steps = _port_order(
-        _steps(spec, torch.tensor(ref_flat)).numpy(),
-        {k: v.shape for k, v in ref_params.items()}, pcfg)
-    steps = torch.maximum(
-        _steps(spec, port_agg.flatten_client_deltas(port_deltas)), ref_steps)
+    flat, inverse = port_agg.flatten_for_wire(params, port_deltas, spec,
+                                              pcfg.kind)
+    steps = _steps(spec, flat)
+    if inverse is not None:
+        steps = steps[:, inverse]
     return coeffs.abs() @ steps
 
 
@@ -291,7 +315,7 @@ def test_compressed_trainer_matches_reference_round_for_round(case, wire,
         loss_fn=port_small.make_loss_fn(pcfg), eval_fn=port_eval(pcfg),
         init_params=from_jax(init, pcfg, "cpu"),
         clients=_clients(port_fed.Client, PORT_TRACES, kind), device="cpu",
-        **common)
+        model_kind=pcfg.kind, **common)
     # the inputs of each port round, for its step bound
     calls = []
     real = port_engine.fed_round_parallel
@@ -324,7 +348,7 @@ def test_compressed_trainer_matches_reference_round_for_round(case, wire,
                                    pcfg, "cpu"))
         diff = (got - want).abs()
         tol = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * want.abs()
-        bound = _step_bound(wire, cfg, pcfg, calls[-1], start)
+        bound = _step_bound(wire, pcfg, calls[-1])
         # f32 noise as in the f32 round, plus the flipped roundings
         assert bool((diff <= tol + bound).all()), \
             float((diff - tol - bound).max())

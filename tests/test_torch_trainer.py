@@ -141,3 +141,69 @@ def test_plan_engine_resumes_across_run_calls_and_picks_tree_on_cpu():
                                    atol=0)
     # the trainer worked on its own copy of the initial params
     assert not torch.equal(one.params["w"], init["w"])
+
+
+@pytest.mark.parametrize("engine", ["plan", "host"])
+def test_one_client_federation_matches_reference(engine):
+    """A federation of one client: equal round records and parameters
+    within PARAM_TOL after 3 rounds, as with many clients."""
+    cfg = SYNTHETIC_LR
+    pcfg = port_configs.PAPER_CONFIGS[cfg.name]
+    init = {k: np.asarray(v)
+            for k, v in init_small(jax.random.PRNGKey(0), cfg).items()}
+    (train,), (test,) = synthetic_federation(0.5, 0.5, 1, seed=0)
+
+    def clients(client_cls, traces):
+        return [client_cls(x=train[0], y=train[1], trace=traces[3],
+                           x_test=test[0], y_test=test[1])]
+
+    common = dict(local_epochs=5, batch_size=10, scheme="C", eta0=0.5,
+                  seed=0, engine=engine)
+    ref = ref_fed.FederatedTrainer(
+        loss_fn=make_loss_fn(cfg), eval_fn=ref_eval(cfg),
+        init_params={k: jnp.asarray(v) for k, v in init.items()},
+        clients=clients(ref_fed.Client, TRACES), interpret=True, **common)
+    port = port_fed.FederatedTrainer(
+        loss_fn=port_small.make_loss_fn(pcfg), eval_fn=port_eval(pcfg),
+        init_params=from_jax(init, pcfg, "cpu"),
+        clients=clients(port_fed.Client, PORT_TRACES), device="cpu",
+        **common)
+    want = ref.run(3, eval_every=1)
+    got = port.run(3, eval_every=1)
+    assert [w.n_active for w in want] == [1, 1, 1]
+    for g, w in zip(got, want, strict=True):
+        assert (g.tau, g.eta, g.n_active, g.event) == \
+            (w.tau, w.eta, w.n_active, w.event)
+        np.testing.assert_array_equal(g.s, w.s)
+        np.testing.assert_allclose(g.loss, w.loss, rtol=1e-5)
+    got_params = to_numpy(port.params, pcfg)
+    for k, v in ref.params.items():
+        np.testing.assert_allclose(got_params[k], np.asarray(v), err_msg=k,
+                                   **PARAM_TOL)
+
+
+def test_one_client_local_sgd_leaves_the_params_and_equals_a_slice():
+    """local_sgd on one client writes its steps into copies, never into
+    the params it was given, and its deltas are the first row of the same
+    steps on two copies of that client."""
+    from repro_torch.core.fed_step import local_sgd
+    pcfg = port_configs.SYNTHETIC_LR
+    params = port_small.init_small(pcfg, seed=3, device="cpu")
+    before = {k: v.clone() for k, v in params.items()}
+    rng = np.random.default_rng(4)
+    E, B = 3, 5
+    batches = {"x": torch.tensor(rng.standard_normal(
+                   (1, E, B, pcfg.input_shape[0])).astype(np.float32)),
+               "y": torch.tensor(rng.integers(0, pcfg.n_classes, (1, E, B)))}
+    alpha = torch.tensor([[1.0, 0.0, 1.0]])
+    eta = torch.tensor(0.5)
+    one = local_sgd(port_small.make_loss_fn(pcfg), params, batches, alpha,
+                    eta)
+    for k in params:
+        assert torch.equal(params[k], before[k]), k
+    two = local_sgd(port_small.make_loss_fn(pcfg), params,
+                    {k: v.expand(2, *v.shape[1:]) for k, v in batches.items()},
+                    alpha.expand(2, E), eta)
+    for k in params:
+        assert float(one[k].abs().max()) > 0, k
+        assert torch.equal(one[k][0], two[k][0]), k
