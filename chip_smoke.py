@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
-round, the compressed federated round, LM serving and Mamba2 SSD serving.
+round, the compressed federated round, the client-sharded round, LM
+serving and Mamba2 SSD serving.
 
     python3 chip_smoke.py
 
@@ -37,7 +38,18 @@ it, and nothing of JAX or of the JAX package.  In order it
    params and round inputs, the card's quantizer against the CPU's (bit
    for bit) and one round per wire on the card against the CPU (within
    PARAM_TOL plus one code step per client, see step_bound);
-6. serves nemotron-4-15b at full width in bf16 with
+6. drives the sharded round: the same trainer with
+   ``sharding=make_fed_sharding()`` over a one-rank NCCL group (a
+   ``file://`` init under ``build/``), on the f32 and int8 wires: launch
+   counts (weighted_agg_sharded or weighted_agg_quant_sharded once per
+   round, weighted_agg never), params and round records bit-identical to
+   the unsharded runs', warm rounds/s in turns with the unsharded
+   trainers; both sharded kernels against their plain versions within
+   ``ops.TOLERANCE`` and bit-identical to the unsharded kernels at the
+   main path's slab, a 16-row slab and K 64, D 600, a planted fault (the
+   wrapper reducing a shifted slab) caught, and the local launch and the
+   all-reduce timed apart.  The group is destroyed when the phase ends;
+7. serves nemotron-4-15b at full width in bf16 with
    ``attn_impl="flash"`` through ``repro_torch.launch.serve.serve``: a
    batch of 4 prompts of 4,096 tokens, then 32 decode steps; checks
    flash_attention's launches (one per layer per prefill, none per decode
@@ -52,10 +64,11 @@ it, and nothing of JAX or of the JAX package.  In order it
    against the model with the intra-chunk term in f64 (LOGITS_FACTOR),
    decode steps against the full forward in f32, the reduced config on the
    card against the CPU; prefill and decode times, busy shares, memory;
-7. times each kernel beside its bound, its plain version and the one
-   PyTorch call that computes the same function (for weighted_agg_quant
-   and ssd_intra_chunk, where no single call does, a composition of
-   calls), and prints them as one ``{"kernels": [...]}`` line.
+8. times each kernel beside its bound, its plain version and the one
+   PyTorch call that computes the same function (for weighted_agg_quant,
+   ssd_intra_chunk and the sharded kernels, where no single call does, a
+   composition of calls), and prints them, the sharded kernels' timings
+   from step 6 among them, as one ``{"kernels": [...]}`` line.
 
 Any failure raises and the script exits nonzero.  The last line,
 ``{"ok": true, "device": {...}}``, is printed only when every phase passed.
@@ -63,6 +76,7 @@ Any failure raises and the script exits nonzero.  The last line,
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -77,8 +91,9 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory, f32 outside the
 # tensor cores (weighted_agg and masked_sgd), dense bf16 on the tensor cores
-# (flash_attention at the serving shape)
+# (flash_attention at the serving shape); and its L2 cache
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 
@@ -217,6 +232,19 @@ QUANT_EDGES = [
 # code, which is right only where a vector lies inside one chunk
 QUANT_FAULT = ("static_cast<int>((col + j < D ? col + j : D - 1) / chunk "
                "- g0)", "0")
+
+
+# the sharded kernels against their plain versions, (K, D) and (K, D,
+# chunk), D None for the CNN's: the main path's slab (62 rows at one rank),
+# a 16-row slab (one of four ranks' share of 64 slots) and the reference's
+# K 64, D 600 (tests/_sharded_check.py:68); the first two are timed
+SHARDED_SLABS = [(N_CLIENTS, None), (16, None), (64, 600)]
+SHARDED_QUANT_SLABS = [(N_CLIENTS, None, QUANT_CHUNK), (16, None, QUANT_CHUNK),
+                       (64, 600, 100)]
+# the caching allocator's pool is grown by this many bytes before the
+# sharded kernels are timed, so that back-to-back calls take their outputs
+# from it and no cudaMalloc falls inside the timed window
+POOL_BYTES = 2 ** 30
 
 
 def log(*args) -> None:
@@ -584,7 +612,7 @@ def check_ssd_intra_chunk(dev, planted) -> float:
     return main_err
 
 
-# -- 4. the main path -----------------------------------------------------------
+# -- 4. the main path ---------------------------------------------------------
 def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
     """The paper's EMNIST federation, synthetic and seeded: label-sorted
     non-IID shards with Pareto sample counts, a Table-2 trace per client,
@@ -607,7 +635,8 @@ def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
     return clients
 
 
-def make_trainer(clients, device, agg: str = "auto", compression=None):
+def make_trainer(clients, device, agg: str = "auto", compression=None,
+                 sharding=None):
     from repro_torch.configs.paper import EMNIST_CNN as cfg
     from repro_torch.fed import FederatedTrainer
     from repro_torch.models.small import (init_small, logits_small,
@@ -624,7 +653,8 @@ def make_trainer(clients, device, agg: str = "auto", compression=None):
         init_params=init_small(cfg, seed=0, device=device), clients=clients,
         local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
         scheme="C", eta0=cfg.eta0, seed=0, engine="plan", agg=agg,
-        compression=compression, device=device, model_kind=cfg.kind)
+        compression=compression, device=device, model_kind=cfg.kind,
+        sharding=sharding)
 
 
 def check_history(history) -> None:
@@ -742,6 +772,9 @@ def main_path(dev):
     if launches != want:
         raise RuntimeError(f"launch counts {launches} != expected {want}")
     check_history(trainer.history)
+    # the params after the main path's rounds, which the sharded round
+    # must reproduce bit for bit
+    first = {k: v.clone() for k, v in trainer.params.items()}
 
     t0 = time.perf_counter()
     plain = make_trainer(make_clients(), "cpu", agg="flat")
@@ -764,16 +797,17 @@ def main_path(dev):
     profile = profile_card(
         f"{PROFILED_ROUNDS} warm rounds",
         lambda: trainer.run(PROFILED_ROUNDS, eval_every=NO_EVAL))
-    return trainer, launches, profile
+    return trainer, launches, profile, first
 
 
-# -- 5. the compressed round ----------------------------------------------------
+# -- 5. the compressed round --------------------------------------------------
 def compressed_path(dev, f32_trainer, n_leaves: int, f32_profile):
     """The trainer of the main path on each wire: launch counts, the f32
     run's round records, finite eval losses and wire bytes; profiles of two
     int8 and two int8-topk rounds against the f32 rounds', and warm
-    rounds/s of every wire and f32 in turns.  Returns the int8 trainer and
-    the kernels' launch counts over its run."""
+    rounds/s of every wire and f32 in turns.  Returns the int8 trainer,
+    the kernels' launch counts over its run and its params after those
+    rounds."""
     f32_history = f32_trainer.history
     from repro_torch.core.compression import wire_bytes
     from repro_torch.kernels import ops
@@ -808,7 +842,8 @@ def compressed_path(dev, f32_trainer, n_leaves: int, f32_profile):
         if rounds >= TAU_DEPART:
             check_history(trainer.history)
         log(f"  round records equal the f32 run's; eval losses finite")
-        out[wire] = (trainer, launches)
+        out[wire] = (trainer, launches,
+                     {k: v.clone() for k, v in trainer.params.items()})
     D = sum(p.numel() for p in out["int8"][0].params.values())
     f32_bytes = wire_bytes(D, "none", n_clients=N_CLIENTS)
     log(f"wire bytes per round, {N_CLIENTS} clients of D = {D}: f32 "
@@ -818,10 +853,10 @@ def compressed_path(dev, f32_trainer, n_leaves: int, f32_profile):
                     f"x fewer)" for w in WIRE_ROUNDS))
     # past the arrival and the departure (an event round evaluates) before
     # any window is timed or profiled
-    for trainer, _ in out.values():
+    for trainer, _, _ in out.values():
         trainer.run(WARM_ROUNDS, eval_every=NO_EVAL)
     rounds_per_s_in_turns(
-        {"f32": f32_trainer, **{w: t for w, (t, _) in out.items()}})
+        {"f32": f32_trainer, **{w: t for w, (t, _, _) in out.items()}})
     for wire in ("int8", "int8-topk"):
         trainer = out[wire][0]
         profile_card(f"{PROFILED_ROUNDS} warm {wire} rounds",
@@ -996,7 +1031,154 @@ def wires_against_cpu(dev, params) -> None:
                                f"step per client")
 
 
-# -- 6. LM serving ------------------------------------------------------------
+# -- 6. the sharded round -----------------------------------------------------
+def same_run(a, b) -> bool:
+    """Two histories with equal round records, eval losses and accuracies
+    (NaN where no eval ran)."""
+    return len(a) == len(b) and all(
+        same_records(x, y) and np.array_equal([x.loss, x.acc],
+                                              [y.loss, y.acc],
+                                              equal_nan=True)
+        for x, y in zip(a, b))
+
+
+def sharded_path(dev, f32_trainer, f32_params, int8_trainer, int8_params,
+                 n_leaves: int, D: int):
+    """The main path's trainer with its client axis sharded over a
+    one-rank NCCL group, on the f32 and int8 wires: launch counts, params
+    and round records bit-identical to the unsharded runs'; warm rounds/s
+    in turns with the unsharded trainers; both sharded kernels against
+    their plain versions and timed.  The group is destroyed when the phase
+    ends, failed or not.  Returns the launch counts of the two runs, the
+    kernels' max_abs_err and their timings."""
+    import torch.distributed as dist
+    from repro_torch.fed import make_fed_sharding
+    from repro_torch.kernels import ops
+    init = ROOT / "build" / "sharded_round.pg"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    try:
+        fs = make_fed_sharding()
+        log(f"sharded round: the main path's trainer with sharding="
+            f"make_fed_sharding() over {fs.n_shards} NCCL rank "
+            f"(backend {dist.get_backend()}), {ROUNDS} rounds per wire")
+        trainers, launches = {}, {}
+        for wire, unsharded, first in ((None, f32_trainer, f32_params),
+                                       ("int8", int8_trainer, int8_params)):
+            name = wire or "f32"
+            trainer = make_trainer(make_clients(), dev, compression=wire,
+                                   sharding=fs)
+            ops.reset_launches()
+            trainer.run(ROUNDS, eval_every=EVAL_EVERY)
+            torch.cuda.synchronize()
+            launches[name] = dict(ops.launches)
+            want = expected_launches(
+                weighted_agg_sharded=0 if wire else ROUNDS,
+                weighted_agg_quant_sharded=ROUNDS if wire else 0,
+                masked_sgd=ROUNDS * n_leaves * trainer.E)
+            log(f"  {name}: launches {launches[name]}, expected {want}")
+            if launches[name] != want:
+                raise RuntimeError(f"launch counts {launches[name]} != "
+                                   f"expected {want}")
+            check_history(trainer.history)
+            if not same_run(trainer.history, unsharded.history[:ROUNDS]):
+                raise RuntimeError(f"{name}: the sharded run's round records "
+                                   f"differ from the unsharded run's")
+            same = all(bit_equal(trainer.params[k], v)
+                       for k, v in first.items())
+            log(f"  {name}: params after {ROUNDS} rounds against the "
+                f"unsharded run's: "
+                f"{'bit-identical' if same else 'DIFFERENT'}; round records, "
+                f"eval losses and accuracies equal")
+            if not same:
+                raise RuntimeError(f"{name}: the sharded run's params differ "
+                                   f"from the unsharded run's")
+            trainer.run(WARM_ROUNDS, eval_every=NO_EVAL)
+            trainers[name] = trainer
+        rounds_per_s_in_turns({"f32": f32_trainer,
+                               "f32 sharded": trainers["f32"],
+                               "int8": int8_trainer,
+                               "int8 sharded": trainers["int8"]})
+        del trainers
+        errs = check_sharded_kernels(dev, D, fs)
+        timings = time_sharded_kernels(dev, D, fs)
+    finally:
+        dist.destroy_process_group()
+    return launches, errs, timings
+
+
+def shifted_slab(rows: torch.Tensor) -> torch.Tensor:
+    """The planted fault's slab: every row moved down by one (the last
+    comes first), in the layout the kernels read."""
+    from repro_torch.kernels.weighted_agg import padded
+    return padded(torch.roll(rows, 1, 0))
+
+
+def check_sharded_kernels(dev, D: int, fs) -> dict:
+    """Both sharded kernels at the main path's 62-row slab, a 16-row slab
+    (one of four ranks' share of 64 slots) and the reference's K 64, D 600
+    against their plain versions within ops.TOLERANCE, and, one rank being
+    the whole federation, bit-identical to the unsharded kernels; a planted
+    fault (the wrapper reducing a shifted slab) must fail the tolerance."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import weighted_agg as agg
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs = {}
+    cases = [(K, n or D, torch.float32) for K, n in SHARDED_SLABS]
+    for K, n, dtype in cases + [(N_CLIENTS, D, torch.bfloat16)]:
+        c = torch.rand(K, device=dev, generator=gen)
+        c[::7] = 0.0
+        d = agg.padded(torch.randn(K, n, device=dev, generator=gen).to(dtype))
+        got = ops.weighted_agg_sharded(c, d, sharding=fs)
+        want = agg.weighted_agg_sharded_plain(c, d, fs)
+        unsharded = agg.launch(c, d)
+        bad = fs.all_reduce(agg.launch(c, shifted_slab(d)))
+        torch.cuda.synchronize()
+        tol = ops.TOLERANCE["weighted_agg_sharded"][dtype]
+        errs[("weighted_agg_sharded", K, n, dtype)] = _held(
+            "weighted_agg_sharded", f"K={K} D={n} {dtype}", got, want,
+            unsharded, bad, tol)
+    for K, n, chunk in SHARDED_QUANT_SLABS:
+        n = n or D
+        c, payload, scales = _quantized(dev, gen, K, n, chunk, 127)
+        got = ops.weighted_agg_quant_sharded(c, payload, scales, chunk=chunk,
+                                             sharding=fs)
+        want = agg.weighted_agg_quant_sharded_plain(c, payload, scales, chunk,
+                                                    fs)
+        unsharded = agg.launch_quant(c, payload, scales, chunk)
+        bad = fs.all_reduce(agg.launch_quant(
+            c, shifted_slab(payload), torch.roll(scales, 1, 0), chunk))
+        torch.cuda.synchronize()
+        tol = ops.TOLERANCE["weighted_agg_quant_sharded"][torch.int8]
+        errs[("weighted_agg_quant_sharded", K, n, chunk)] = _held(
+            "weighted_agg_quant_sharded", f"K={K} D={n} chunk={chunk}", got,
+            want, unsharded, bad, tol)
+    return {name: max(e for k, e in errs.items() if k[0] == name)
+            for name in ("weighted_agg_sharded",
+                         "weighted_agg_quant_sharded")}
+
+
+def _held(name: str, shape: str, got, want, unsharded, bad, tol) -> float:
+    err = max_abs_err(got, want)
+    same = bit_equal(got, unsharded)
+    log(f"  {name} {shape}: max_abs_err {err:.3e} against the plain version "
+        f"(rtol {tol['rtol']:g}, atol {tol['atol']:g}), "
+        f"{'bit-identical to' if same else 'DIFFERENT from'} the unsharded "
+        f"kernel; planted fault {max_abs_err(bad, want):.3e}")
+    torch.testing.assert_close(got, want, **tol)
+    if not same:
+        raise RuntimeError(f"{name} on one rank differs from the unsharded "
+                           f"kernel")
+    try:
+        torch.testing.assert_close(bad, want, **tol)
+    except AssertionError:
+        return err
+    raise RuntimeError(f"the check of {name} does not see the planted fault")
+
+
+# -- 7. LM serving ------------------------------------------------------------
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1208,7 +1390,7 @@ def compare_with_chunked(params, cfg, prompts, cache, flash, planted):
     return chunked_s
 
 
-# -- 6b. Mamba2 SSD serving ----------------------------------------------------
+# -- 7b. Mamba2 SSD serving ---------------------------------------------------
 def ssm_prefill_logits(params, cfg, tokens, intra):
     """The prefill's last-position logits computed layer by layer from the
     port's building blocks, with ``intra`` as each layer's intra-chunk term
@@ -1430,7 +1612,7 @@ def ssm_serve_path(dev, planted):
     return launches
 
 
-# -- 7. timing ----------------------------------------------------------------
+# -- 8. timing ----------------------------------------------------------------
 def device_ms(fn, n: int) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for a few tens of ms, so the
@@ -1563,6 +1745,108 @@ def time_weighted_agg_quant(dev, D: int):
                 library_ms=None, composition_ms=composition)
 
 
+def time_sharded_kernels(dev, D: int, fs) -> dict:
+    """Both sharded kernels at the main path's 62-row slab and a 16-row
+    slab: the local launch and the all-reduce of its (D,) f32 partial,
+    each alone, the wrapper's whole call, its plain version, and the
+    composition of PyTorch calls that computes the same (torch.mv, or
+    time_weighted_agg_quant's dequantize-and-mv, then the all-reduce), on
+    inputs that come from device memory (``rotation``).  The bound is the
+    slab's bytes over the card's memory rate (on one rank nothing crosses
+    a link).  Returns {name: {rows: timings}}."""
+    from repro_torch.kernels import weighted_agg as agg
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {"weighted_agg_sharded": {}, "weighted_agg_quant_sharded": {}}
+    for K, n in SHARDED_SLABS[:2]:
+        n = n or D
+        sets = rotation(lambda: (torch.rand(K, device=dev, generator=gen),
+                                 agg.padded(torch.randn(K, n, device=dev,
+                                                        generator=gen))),
+                        4 * K * n)
+        partial = agg.launch(*next(sets))
+        grow_pool(dev)
+        r = dict(
+            ms=device_ms(lambda: fs.all_reduce(agg.launch(*next(sets))),
+                         100),
+            local_ms=device_ms(lambda: agg.launch(*next(sets)), 100),
+            all_reduce_ms=device_ms(lambda: fs.all_reduce(partial), 100),
+            plain_ms=device_ms(lambda: agg.weighted_agg_sharded_plain(
+                *next(sets), fs), 10),
+            composition_ms=device_ms(lambda: fs.all_reduce(
+                mv(*next(sets))), 100))
+        r["bound_ms"], r["bound_by"] = bound_ms(4 * (K * n + K + n),
+                                                2 * K * n)
+        out["weighted_agg_sharded"][K] = r
+        _log_sharded("weighted_agg_sharded", f"coeffs ({K},) f32 and deltas "
+                     f"({K}, {n}) f32", r, "torch.mv(deltas.t(), coeffs)")
+    for K, n, chunk in SHARDED_QUANT_SLABS[:2]:
+        n = n or D
+        sets = rotation(lambda: _quantized(dev, gen, K, n, chunk, 127), K * n)
+        c, payload, scales = next(sets)
+        Dp, n_chunks = payload.shape[1], scales.shape[1]
+        partial = agg.launch_quant(c, payload, scales, chunk)
+        grow_pool(dev)
+        r = dict(
+            ms=device_ms(lambda: fs.all_reduce(agg.launch_quant(
+                *next(sets), chunk)), 100),
+            local_ms=device_ms(lambda: agg.launch_quant(
+                *next(sets), chunk), 100),
+            all_reduce_ms=device_ms(lambda: fs.all_reduce(partial), 100),
+            plain_ms=device_ms(lambda: agg.weighted_agg_quant_sharded_plain(
+                *next(sets), chunk, fs), 10),
+            composition_ms=device_ms(lambda: fs.all_reduce(dequantized_mv(
+                *next(sets), chunk)), 20))
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            K * Dp + 4 * (K * n_chunks + K + Dp), 3 * K * Dp)
+        out["weighted_agg_quant_sharded"][K] = r
+        _log_sharded("weighted_agg_quant_sharded", f"coeffs ({K},), payload "
+                     f"({K}, {Dp}) int8, scales ({K}, {n_chunks}) f32", r,
+                     "the dequantize-and-mv composition")
+    return out
+
+
+def rotation(draw, n_bytes: float):
+    """An endless cycle over enough input sets (each from draw()) that the
+    bytes read between two uses of one set exceed twice the L2 cache:
+    every timed call then reads its operands from device memory, as the
+    byte bound counts them.  A 16-row slab alone would stay in L2."""
+    return itertools.cycle(
+        [draw() for _ in range(max(1, math.ceil(2 * L2_BYTES / n_bytes)))])
+
+
+def grow_pool(dev) -> None:
+    """Grow the caching allocator's pool by POOL_BYTES; the timed calls
+    then take their outputs from it."""
+    torch.empty(POOL_BYTES, dtype=torch.uint8, device=dev)
+
+
+def mv(c, d):
+    return torch.mv(d.t(), c)
+
+
+def dequantized_mv(c, payload, scales, chunk):
+    K = payload.shape[0]
+    return torch.mv((payload.float().view(K, -1, chunk) * scales[..., None])
+                    .view(K, -1).t(), c)
+
+
+def sharded_row(timings: dict) -> dict:
+    """A sharded kernel's numbers for the kernels line: its timings at the
+    main path's slab, and the smaller slab's beside them."""
+    K = SHARDED_SLABS[1][0]
+    return {**timings[N_CLIENTS], f"slab{K}": timings[K]}
+
+
+def _log_sharded(name: str, shape: str, r: dict, composition: str) -> None:
+    log(f"  {name}, {shape}, one NCCL rank: wrapper "
+        f"{r['ms'] * 1e3:.1f} us = local launch {r['local_ms'] * 1e3:.1f} "
+        f"us + all_reduce {r['all_reduce_ms'] * 1e3:.1f} us (each timed "
+        f"alone), bound {r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}, "
+        f"plain {r['plain_ms'] * 1e3:.1f} us; no single PyTorch call "
+        f"computes it: {composition} + all_reduce "
+        f"{r['composition_ms'] * 1e3:.1f} us")
+
+
 def time_ssd_intra_chunk(dev):
     """The serving prefill's intra-chunk term, one layer's: cells (batch *
     chunks, heads) in the model's layout (C and B shared by the heads
@@ -1653,9 +1937,12 @@ def main() -> None:
     check_quant_memory(dev, D)
     ssd_err = check_ssd_intra_chunk(dev, planted_ssd)
 
-    f32_trainer, launches, f32_profile = main_path(dev)
-    int8_trainer, int8_launches = compressed_path(
+    f32_trainer, launches, f32_profile, f32_params = main_path(dev)
+    int8_trainer, int8_launches, int8_params = compressed_path(
         dev, f32_trainer, len(leaves), f32_profile)
+    sharded_launches, sharded_errs, sharded_t = sharded_path(
+        dev, f32_trainer, f32_params, int8_trainer, int8_params, len(leaves),
+        D)
     del f32_trainer
     wires_against_cpu(dev, int8_trainer.params)
     del int8_trainer
@@ -1679,6 +1966,20 @@ def main() -> None:
              replaces="src/repro/kernels/weighted_agg.py:187",
              launches=int8_launches["weighted_agg_quant"],
              max_abs_err=quant_err, **quant_t),
+        dict(name="weighted_agg_sharded", route="cuda",
+             source=f"{csrc}/weighted_agg.cu",
+             replaces="src/repro/kernels/weighted_agg.py:294",
+             launches=sharded_launches["f32"]["weighted_agg_sharded"],
+             max_abs_err=sharded_errs["weighted_agg_sharded"],
+             library_ms=None, **sharded_row(
+                 sharded_t["weighted_agg_sharded"])),
+        dict(name="weighted_agg_quant_sharded", route="cuda",
+             source=f"{csrc}/weighted_agg_quant.cu",
+             replaces="src/repro/kernels/weighted_agg.py:254",
+             launches=sharded_launches["int8"]["weighted_agg_quant_sharded"],
+             max_abs_err=sharded_errs["weighted_agg_quant_sharded"],
+             library_ms=None, **sharded_row(
+                 sharded_t["weighted_agg_quant_sharded"])),
         dict(name="masked_sgd", route="cuda", source=f"{csrc}/masked_sgd.cu",
              replaces="src/repro/kernels/masked_sgd.py:26",
              launches=launches["masked_sgd"], max_abs_err=sgd_err, **sgd_t),

@@ -13,8 +13,12 @@ federated round, ``weighted_agg``, ``masked_sgd`` and, on the int8 wires,
 ``flash_attention``, and the intra-chunk term of Mamba2's SSD prefill,
 ``ssd_intra_chunk``, are hand-written CUDA for ``sm_90a``
 (``kernels/csrc/``), built with ``nvcc`` at their first launch; CPU
-tensors take their plain PyTorch versions.
+tensors take their plain PyTorch versions.  ``make_fed_sharding`` shards
+the federation's client axis over an initialised ``torch.distributed``
+group (``fed/sharding.py``), whose ranks reduce their clients' deltas with
+the same kernels and all-reduce the partial sums.
 """
 from repro_torch.device import resolve_device
+from repro_torch.fed.sharding import FedSharding, make_fed_sharding
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "FedSharding", "make_fed_sharding"]

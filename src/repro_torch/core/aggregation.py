@@ -12,6 +12,11 @@ Parameters are dicts of tensors; a client-stacked dict has a leading
 client axis C on every leaf.  Leaves are visited in sorted-key order,
 which is ``jax.tree.leaves`` order for a dict, so the flat (C, D) buffer
 lays the leaves out as the reference's does.
+
+Under ``sharding=`` (``fed.sharding.FedSharding``) the deltas and
+coefficients are this rank's share of the client axis; every layout
+reduces it locally and then sums one (D,) f32 buffer over the federation
+axis, one all-reduce per round, which leaves the params replicated.
 """
 from __future__ import annotations
 
@@ -57,14 +62,20 @@ def _apply(params: Params, update: Dict[str, torch.Tensor]) -> Params:
     return params
 
 
-def aggregate_deltas(params: Params, deltas: Params,
-                     coeffs: torch.Tensor) -> Params:
+def aggregate_deltas(params: Params, deltas: Params, coeffs: torch.Tensor,
+                     *, sharding=None) -> Params:
     """w + sum_k c_k delta_k over a stacked client axis, leaf by leaf.
-    deltas: leaves (C, ...) f32; coeffs: (C,).  Updates params in place."""
+    deltas: leaves (C, ...) f32; coeffs: (C,).  Updates params in place.
+    Under ``sharding`` the per-leaf sums of this rank's clients go into
+    one (D,) buffer, summed over the federation axis at once."""
     c = coeffs.float()
-    return _apply(params, {
+    update = {
         name: (c.reshape((-1,) + (1,) * (d.dim() - 1)) * d.float()).sum(0)
-        for name, d in deltas.items()})
+        for name, d in deltas.items()}
+    if sharding is None:
+        return _apply(params, update)
+    return _apply_flat(params, sharding.all_reduce(
+        torch.cat([update[name].reshape(-1) for name in sorted(update)])))
 
 
 def flatten_client_deltas(deltas: Params) -> torch.Tensor:
@@ -117,7 +128,8 @@ def _apply_flat(params: Params, agg: torch.Tensor) -> Params:
 def aggregate_deltas_flat(params: Params, deltas: Params,
                           coeffs: torch.Tensor, *,
                           compression=None,
-                          model_kind: Optional[str] = None) -> Params:
+                          model_kind: Optional[str] = None,
+                          sharding=None) -> Params:
     """Same contract as aggregate_deltas, but the whole model is flattened
     into one (C, D_total) buffer and reduced with ONE kernel launch
     (instead of one scaled sum per leaf).  Updates params in place.
@@ -127,32 +139,47 @@ def aggregate_deltas_flat(params: Params, deltas: Params,
     (``flatten_for_wire``, for the model of ``model_kind``), and reduce the
     (payload, scales) pair with one weighted_agg_quant launch, which
     dequantizes in registers; bf16 casts the buffer into the bf16 rows
-    weighted_agg reads."""
+    weighted_agg reads.
+
+    sharding: this rank's clients are reduced by the sharded form of the
+    same kernel (``weighted_agg_sharded``, ``weighted_agg_quant_sharded``):
+    one local launch, then one all-reduce of the f32 partial.  The
+    quantizer works per row, so a rank's payload and scales are its rows
+    of the unsharded wire."""
     spec = resolve_compression(compression)
     flat, inverse = flatten_for_wire(params, deltas, spec, model_kind)
     coeffs = coeffs.float()
     if spec.quantized:
         payload, scales = compress_flat(flat, spec)
-        agg = ops.weighted_agg_quant(coeffs, payload, scales,
-                                     chunk=spec.chunk)[:flat.shape[1]]
+        if sharding is None:
+            agg = ops.weighted_agg_quant(coeffs, payload, scales,
+                                         chunk=spec.chunk)
+        else:
+            agg = ops.weighted_agg_quant_sharded(
+                coeffs, payload, scales, chunk=spec.chunk, sharding=sharding)
+        agg = agg[:flat.shape[1]]
     else:
         if spec.kind == "bf16":
             flat = padded(flat, torch.bfloat16)
-        agg = ops.weighted_agg(coeffs, flat)
+        agg = (ops.weighted_agg(coeffs, flat) if sharding is None else
+               ops.weighted_agg_sharded(coeffs, flat, sharding=sharding))
     return _apply_flat(params, agg if inverse is None else agg[inverse])
 
 
 def aggregate_deltas_compressed_ref(params: Params, deltas: Params,
                                     coeffs: torch.Tensor,
                                     compression,
-                                    model_kind: Optional[str] = None
-                                    ) -> Params:
+                                    model_kind: Optional[str] = None, *,
+                                    sharding=None) -> Params:
     """Plain reference for the compressed flat reduction: quantize ->
     dequantize -> matrix-vector product on the same flat layout and chunk
     grid as the kernel path; only the f32 reduction order differs.  The
     tree path's compressed round (``agg="tree"``).  Updates params in
-    place."""
+    place.  Under ``sharding`` the product of this rank's rows is summed
+    over the federation axis."""
     spec = resolve_compression(compression)
     flat, inverse = flatten_for_wire(params, deltas, spec, model_kind)
     agg = coeffs.float() @ round_trip(flat, spec)
+    if sharding is not None:
+        agg = sharding.all_reduce(agg)
     return _apply_flat(params, agg if inverse is None else agg[inverse])

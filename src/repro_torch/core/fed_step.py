@@ -69,7 +69,8 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
                        alpha: torch.Tensor, coeffs: torch.Tensor,
                        eta: torch.Tensor, *, agg: str = "tree",
                        compression=None,
-                       model_kind: Optional[str] = None) -> Params:
+                       model_kind: Optional[str] = None,
+                       sharding=None) -> Params:
     """batches: dict of (C, E, ...) tensors; alpha: (C, E); coeffs: (C,).
     Returns the new params, written into ``params`` in place.
 
@@ -83,15 +84,20 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
     (bf16: a cast into weighted_agg); on the tree layout the plain
     reference round-trips the same quantization lattice.  model_kind: the
     paper model's ``kind``, which fixes the quantized wire's element order
-    (``core.aggregation.flatten_for_wire``)."""
+    (``core.aggregation.flatten_for_wire``).
+
+    sharding: optional ``fed.sharding.FedSharding``; batches, alpha and
+    coeffs are then this rank's share of the client axis, and the
+    aggregation sums every rank's deltas into the replicated params."""
     spec = resolve_compression(compression)
     deltas = local_sgd(loss_fn, params, batches, alpha, eta)
     if agg == "flat":
         return aggregate_deltas_flat(params, deltas, coeffs,
-                                     compression=spec, model_kind=model_kind)
+                                     compression=spec, model_kind=model_kind,
+                                     sharding=sharding)
     if agg == "tree":
         if spec.active:
-            return aggregate_deltas_compressed_ref(params, deltas, coeffs,
-                                                   spec, model_kind)
-        return aggregate_deltas(params, deltas, coeffs)
+            return aggregate_deltas_compressed_ref(
+                params, deltas, coeffs, spec, model_kind, sharding=sharding)
+        return aggregate_deltas(params, deltas, coeffs, sharding=sharding)
     raise ValueError(f"agg must be tree|flat, got {agg!r}")

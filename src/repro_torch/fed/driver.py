@@ -15,7 +15,9 @@ coefficient 0).  Two modes:
                   parity tests).
 
 The reference's device-mode sampling (``engine="device"``) waits for a
-later slice.
+later slice.  ``sharding=`` (``fed.sharding.FedSharding``) shards the plan
+engine's client axis over a ``torch.distributed`` group; the host loop
+stays unsharded, as the reference's does.
 """
 from __future__ import annotations
 
@@ -77,6 +79,9 @@ class FederatedTrainer:
     deltas (``core/compression.py``); ``model_kind`` (the model's
     ``PaperModelConfig.kind``) fixes a quantized wire's element order, the
     reference's for the CNN too (``core.aggregation.flatten_for_wire``).
+    ``sharding`` (``fed.sharding.make_fed_sharding()``) gives the plan
+    engine's client slots to the ranks of a process group; every rank
+    runs the trainer and holds the same replicated params and history.
     """
 
     def __init__(self, *, loss_fn: Callable,
@@ -88,9 +93,12 @@ class FederatedTrainer:
                  bound_terms: Optional[BoundTerms] = None,
                  seed: int = 0, engine: str = "plan", agg: str = "auto",
                  compression=None, device=None,
-                 model_kind: Optional[str] = None):
+                 model_kind: Optional[str] = None, sharding=None):
         if engine not in ("plan", "host"):
             raise ValueError(f"engine must be plan|host, got {engine!r}")
+        if engine == "host" and sharding is not None:
+            raise ValueError("the host engine is not sharded: pass "
+                             "sharding= with engine='plan'")
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
@@ -111,6 +119,7 @@ class FederatedTrainer:
         self.model_kind = model_kind
         self.engine_mode = engine
         self.agg = agg
+        self.sharding = sharding
         self._scheduler = None
         # membership bookkeeping
         self.objective: set = {i for i, c in enumerate(clients)
@@ -238,7 +247,8 @@ class FederatedTrainer:
                 loss_fn=self.loss_fn, clients=self.clients,
                 local_epochs=self.E, batch_size=self.B, scheme=self.scheme,
                 eta0=self.eta0, agg=self.agg, device=self.device,
-                compression=self.compression, model_kind=self.model_kind)
+                compression=self.compression, model_kind=self.model_kind,
+                sharding=self.sharding)
             self._scheduler = StreamScheduler(
                 clients=self.clients, init_params=self.params, engine=engine,
                 reboot_boost=self.reboot_boost, fast_reboot=self.fast_reboot,

@@ -15,6 +15,15 @@ Capacity slots: slots beyond the founding clients start empty;
 buffer, so a membership event never rebuilds the engine.  Device-mode
 sampling (the on-device inverse-CDF draw of the trace law) waits for a
 later slice; this engine takes a plan.
+
+Sharding: with ``sharding=FedSharding(...)`` (``fed/sharding.py``) the
+capacity is padded to whole slots per rank and this rank's buffers hold
+only its own slots.  Every rank takes the same full plan; ``s`` and the
+scheme coefficients (boost included) are computed over the whole
+capacity, and only then is the rank's share of alpha, the batch indices
+and the coefficients cut (``FedSharding.shard``).  Each rank trains its
+own clients and the aggregation ends in one all-reduce, so the params stay
+replicated and the metrics are the whole federation's on every rank.
 """
 from __future__ import annotations
 
@@ -55,7 +64,8 @@ class RoundEngine:
                  eta0: float = 0.01, agg: str = "auto",
                  capacity: Optional[int] = None,
                  max_samples: Optional[int] = None, device=None,
-                 compression=None, model_kind: Optional[str] = None):
+                 compression=None, model_kind: Optional[str] = None,
+                 sharding=None):
         if (task is None) == (loss_fn is None):
             raise ValueError("pass exactly one of task= or loss_fn=")
         if task is None:
@@ -92,21 +102,32 @@ class RoundEngine:
             capacity = C
         if capacity < max(C, 1):
             raise ValueError(f"capacity {capacity} < {C} founding clients")
+        self.sharding = sharding
+        if sharding is not None:
+            # every rank owns the same number of whole slots; the extra
+            # ones are ordinary empty capacity slots (p = 0, never train)
+            capacity = sharding.pad_capacity(capacity)
+            self.local_slots = sharding.slots(capacity)
+        else:
+            self.local_slots = range(capacity)
         self.capacity = capacity
         nmax = max((c.n for c in clients), default=1)
         if max_samples is not None:
             nmax = max(nmax, max_samples)
         self.nmax = nmax
-        stacks = {name: np.zeros((capacity, nmax) + spec.shape, spec.dtype)
+        lo, n_local = self.local_slots.start, len(self.local_slots)
+        stacks = {name: np.zeros((n_local, nmax) + spec.shape, spec.dtype)
                   for name, spec in task.buffers.items()}
         for i, c in enumerate(clients):
-            for name, arr in self._client_rows(c).items():
-                stacks[name][i, :c.n] = arr
-        # datasets move host->device exactly once, here
+            if i in self.local_slots:
+                for name, arr in self._client_rows(c).items():
+                    stacks[name][i - lo, :c.n] = arr
+        # datasets move host->device exactly once, here; under sharding
+        # each rank holds only the rows of the slots it owns
         self.data = {name: torch.from_numpy(buf).to(self.device)
                      for name, buf in stacks.items()}
-        self._slots = torch.arange(capacity, device=self.device)[:, None,
-                                                                 None]
+        self._slots = torch.arange(n_local, device=self.device)[:, None,
+                                                                None]
 
     def _client_rows(self, client):
         """The task's per-sample arrays for one client, shape-checked
@@ -128,7 +149,9 @@ class RoundEngine:
     def admit_many(self, assignments) -> None:
         """Write a burst of (slot, client) pairs into their slots: the rows
         are padded and stacked on the host, then go up as one transfer and
-        one indexed write per buffer."""
+        one indexed write per buffer.  Under sharding every rank checks the
+        whole burst and writes only the slots it owns, at their local
+        rows."""
         assignments = list(assignments)
         if not assignments:
             return
@@ -142,9 +165,15 @@ class RoundEngine:
                 raise ValueError(
                     f"client has {c.n} samples > slot capacity {self.nmax}; "
                     f"build the engine with max_samples >= {c.n}")
-        index = torch.tensor(slots, device=self.device)
+        assignments = [(slot - self.local_slots.start, c)
+                       for slot, c in assignments if slot in self.local_slots]
+        if not assignments:
+            return
+        index = torch.tensor([row for row, _ in assignments],
+                             device=self.device)
         for name, spec in self.task.buffers.items():
-            rows = np.zeros((len(slots), self.nmax) + spec.shape, spec.dtype)
+            rows = np.zeros((len(assignments), self.nmax) + spec.shape,
+                            spec.dtype)
             for j, (_, c) in enumerate(assignments):
                 rows[j, :c.n] = self._client_rows(c)[name]
             self.data[name][index] = torch.from_numpy(rows).to(self.device)
@@ -158,8 +187,6 @@ class RoundEngine:
     # -- one round ------------------------------------------------------------
     def _round_core(self, params, alpha, idx, tau, p, rb_tau0, rb_boost,
                     lr_shift: int):
-        batches = self.task.make_batch(
-            {name: buf[self._slots, idx] for name, buf in self.data.items()})
         s = alpha.sum(-1)
         coeffs = scheme_coefficients(self.scheme, p, s, self.E)
         # fast-reboot boost, exact O((tau-tau0)^-2) decay at every tau;
@@ -167,10 +194,18 @@ class RoundEngine:
         dt = torch.clamp(tau - rb_tau0, min=0).float()
         coeffs = coeffs * (1.0 + (rb_boost - 1.0) / (1.0 + dt).square())
         eta = self._eta0 / torch.clamp((tau + 1 - lr_shift).float(), min=1.0)
+        if self.sharding is not None:
+            # s and the coefficients are the whole capacity's (scheme A
+            # normalises over every slot); only now is this rank's share
+            # cut (idx came up already cut: run_span)
+            alpha, coeffs = (self.sharding.shard(x) for x in (alpha, coeffs))
+        batches = self.task.make_batch(
+            {name: buf[self._slots, idx] for name, buf in self.data.items()})
         params = fed_round_parallel(self.loss_fn, params, batches, alpha,
                                     coeffs, eta, agg=self.agg,
                                     compression=self.compression,
-                                    model_kind=self.model_kind)
+                                    model_kind=self.model_kind,
+                                    sharding=self.sharding)
         return params, s, eta
 
     # -- host entry point -----------------------------------------------------
@@ -179,7 +214,9 @@ class RoundEngine:
         """Run n_rounds starting at tau_start with fixed membership.
 
         plan: (alphas (R, capacity, E), idxs (R, capacity, E, B)) sampled on
-        the host.  params are updated in place.  Returns (params, metrics)
+        the host.  Under sharding only this rank's slots of idxs go up;
+        alphas go up whole, for s over the whole capacity.  params are
+        updated in place.  Returns (params, metrics)
         with the metrics still on the device, stacked over rounds:
         s (R, capacity) and eta (R,), so the host does not wait for the
         span; the caller reads them back when it needs them.
@@ -190,7 +227,10 @@ class RoundEngine:
         rb_boost = torch.as_tensor(reboot_boost, dtype=torch.float32,
                                    device=dev)
         alphas = torch.as_tensor(plan[0], dtype=torch.float32, device=dev)
-        idxs = torch.as_tensor(plan[1], dtype=torch.int64, device=dev)
+        idxs = np.asarray(plan[1])
+        if self.sharding is not None:
+            idxs = self.sharding.shard(idxs.swapaxes(0, 1)).swapaxes(0, 1)
+        idxs = torch.as_tensor(idxs, dtype=torch.int64, device=dev)
         # round indices are made on the device: a host scalar per round
         # would be a blocking copy per round
         taus = tau_start + torch.arange(n_rounds, dtype=torch.int32,

@@ -16,7 +16,10 @@ version make the same roundings in the same order, so on the card the two
 must be equal.  ``ssd_intra_chunk``'s bf16 entry is the reference suite's
 for its sizes (Q up to 128); at a prefill's thousands of Q = 256 cells the
 bf16 rounding of the scores alone can leave it, and ``chip_smoke.py``
-holds the kernel there to that rounding's own bound.
+holds the kernel there to that rounding's own bound.  The sharded forms'
+entries are the reference's gate for its psum epilogue against the
+single-device reduction, max abs error below 1e-4
+(``tests/_sharded_check.py:74``).
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import weighted_agg as _agg
 
 launches: Dict[str, int] = {"weighted_agg": 0, "weighted_agg_quant": 0,
+                            "weighted_agg_sharded": 0,
+                            "weighted_agg_quant_sharded": 0,
                             "masked_sgd": 0, "flash_attention": 0,
                             "ssd_intra_chunk": 0}
 
@@ -37,6 +42,10 @@ TOLERANCE = {
     "weighted_agg": {torch.float32: dict(rtol=1e-6, atol=1e-5),
                      torch.bfloat16: dict(rtol=2e-2, atol=1e-5)},
     "weighted_agg_quant": {torch.int8: dict(rtol=1e-5, atol=1e-6)},
+    # tests/_sharded_check.py:74
+    "weighted_agg_sharded": {torch.float32: dict(rtol=0.0, atol=1e-4),
+                             torch.bfloat16: dict(rtol=0.0, atol=1e-4)},
+    "weighted_agg_quant_sharded": {torch.int8: dict(rtol=0.0, atol=1e-4)},
     "masked_sgd": {torch.float32: dict(rtol=1e-5, atol=1e-5),
                    torch.bfloat16: dict(rtol=2e-2, atol=1e-5)},
     "flash_attention": {torch.float32: dict(rtol=2e-5, atol=1e-5),
@@ -81,6 +90,35 @@ def weighted_agg_quant(coeffs: torch.Tensor, payload: torch.Tensor,
         return _agg.weighted_agg_quant_plain(coeffs, payload, scales, chunk)
     out = _agg.launch_quant(coeffs, payload, scales, chunk)
     launches["weighted_agg_quant"] += 1
+    return out
+
+
+def weighted_agg_sharded(coeffs: torch.Tensor, deltas: torch.Tensor, *,
+                         sharding) -> torch.Tensor:
+    """coeffs (K/n,) f32 and deltas (K/n, D) f32 or bf16, this rank's
+    slab of the client axis (``FedSharding.shard``) -> (D,) f32, the sum
+    over every rank's clients of coeffs[k] * deltas[k, d], replicated."""
+    _agg.check_args(coeffs, deltas)
+    if not _on_card(deltas, "weighted_agg_sharded"):
+        return _agg.weighted_agg_sharded_plain(coeffs, deltas, sharding)
+    out = sharding.all_reduce(_agg.launch(coeffs, deltas))
+    launches["weighted_agg_sharded"] += 1
+    return out
+
+
+def weighted_agg_quant_sharded(coeffs: torch.Tensor, payload: torch.Tensor,
+                               scales: torch.Tensor, *, chunk: int,
+                               sharding) -> torch.Tensor:
+    """weighted_agg_quant on this rank's slab (coeffs (K/n,), payload
+    (K/n, Dp) int8, scales (K/n, Dp / chunk) f32) -> (Dp,) f32 summed over
+    the federation axis, replicated: only the f32 partial crosses ranks."""
+    _agg.check_quant_args(coeffs, payload, scales, chunk)
+    if not _on_card(payload, "weighted_agg_quant_sharded"):
+        return _agg.weighted_agg_quant_sharded_plain(coeffs, payload, scales,
+                                                     chunk, sharding)
+    out = sharding.all_reduce(_agg.launch_quant(coeffs, payload, scales,
+                                                chunk))
+    launches["weighted_agg_quant_sharded"] += 1
     return out
 
 

@@ -10,6 +10,11 @@ from repro_torch.kernels.weighted_agg import \
     weighted_agg_plain as weighted_agg_ref
 from repro_torch.kernels.weighted_agg import \
     weighted_agg_quant_plain as weighted_agg_quant_ref
+from repro_torch.kernels.weighted_agg import \
+    weighted_agg_quant_sharded_plain as weighted_agg_quant_sharded_ref
+from repro_torch.kernels.weighted_agg import \
+    weighted_agg_sharded_plain as weighted_agg_sharded_ref
 
-__all__ = ["weighted_agg_ref", "weighted_agg_quant_ref", "masked_sgd_ref",
-           "flash_attention_ref", "ssd_intra_chunk_ref"]
+__all__ = ["weighted_agg_ref", "weighted_agg_quant_ref",
+           "weighted_agg_sharded_ref", "weighted_agg_quant_sharded_ref",
+           "masked_sgd_ref", "flash_attention_ref", "ssd_intra_chunk_ref"]

@@ -10,6 +10,14 @@ replace the Pallas kernels ``repro/kernels/weighted_agg.py:108`` and
 ``:187``; their sources say what bounds them and how their designs answer
 that.  Callers go through ``repro_torch.kernels.ops``, which picks the
 kernel for CUDA tensors and the plain version for CPU tensors.
+
+The sharded forms (``weighted_agg_sharded`` and
+``weighted_agg_quant_sharded``, ``repro/kernels/weighted_agg.py:294`` and
+``:254``) take one rank's slab of the client axis: the same kernel reduces
+it to a (D,) f32 partial, and ``FedSharding.all_reduce`` sums the partials
+over the federation axis.  On the TPU too the ``pallas_call`` is the
+unsharded kernel and ``lax.psum`` is XLA's collective outside it
+(``_local_agg_psum``, ``_local_quant_agg_psum``).
 """
 from __future__ import annotations
 
@@ -190,3 +198,20 @@ def launch_quant(coeffs: torch.Tensor, payload: torch.Tensor,
         raise RuntimeError(f"weighted_agg_quant launch failed with CUDA "
                            f"error {err}")
     return out
+
+
+def weighted_agg_sharded_plain(coeffs: torch.Tensor, deltas: torch.Tensor,
+                               sharding) -> torch.Tensor:
+    """weighted_agg_sharded in plain PyTorch: the plain version on this
+    rank's (K/n, D) slab, then the sum over the federation axis."""
+    return sharding.all_reduce(weighted_agg_plain(coeffs, deltas))
+
+
+def weighted_agg_quant_sharded_plain(coeffs: torch.Tensor,
+                                     payload: torch.Tensor,
+                                     scales: torch.Tensor, chunk: int,
+                                     sharding) -> torch.Tensor:
+    """weighted_agg_quant_sharded in plain PyTorch: the plain version on
+    this rank's int8 slab, then the f32 sum over the federation axis."""
+    return sharding.all_reduce(
+        weighted_agg_quant_plain(coeffs, payload, scales, chunk))

@@ -277,3 +277,71 @@ def test_ssd_intra_chunk_kernel_refuses_what_it_cannot_read(card):
         ops.ssd_intra_chunk(cum, y, y, y.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         ops.ssd_intra_chunk(cum, y[..., ::2], y[..., ::2], y)
+
+
+@pytest.fixture
+def nccl_rank(card, tmp_path):
+    """A one-rank NCCL group for the sharded wrappers, destroyed after the
+    test."""
+    import torch.distributed as dist
+    from repro_torch.fed import make_fed_sharding
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        yield make_fed_sharding()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,D", [(62, 461630), (16, 461630), (64, 600)])
+def test_weighted_agg_sharded_at_one_nccl_rank(nccl_rank, card, K, D, dtype):
+    """Against its plain version within ops.TOLERANCE (the reference's
+    1e-4), and bit-identical to the unsharded kernel: one rank's
+    all-reduce is the identity."""
+    from repro_torch.kernels.weighted_agg import weighted_agg_sharded_plain
+    gen = torch.Generator(device=card).manual_seed(K + D)
+    c = torch.rand(K, device=card, generator=gen)
+    d = padded(torch.randn(K, D, device=card, generator=gen).to(dtype))
+    before = dict(ops.launches)
+    got = ops.weighted_agg_sharded(c, d, sharding=nccl_rank)
+    torch.cuda.synchronize()
+    assert ops.launches == {**before, "weighted_agg_sharded":
+                            before["weighted_agg_sharded"] + 1}
+    torch.testing.assert_close(
+        got, weighted_agg_sharded_plain(c, d, nccl_rank),
+        **ops.TOLERANCE["weighted_agg_sharded"][dtype])
+    assert torch.equal(got, ops.weighted_agg(c, d))
+
+
+@pytest.mark.parametrize("K,D,chunk", [(62, 461630, 256), (16, 461630, 256),
+                                       (64, 600, 100)])
+def test_weighted_agg_quant_sharded_at_one_nccl_rank(nccl_rank, card, K, D,
+                                                     chunk):
+    from repro_torch.kernels.weighted_agg import \
+        weighted_agg_quant_sharded_plain
+    c, payload, scales = _quantized(card, K, D, chunk, 127, K + D)
+    before = dict(ops.launches)
+    got = ops.weighted_agg_quant_sharded(c, payload, scales, chunk=chunk,
+                                         sharding=nccl_rank)
+    torch.cuda.synchronize()
+    assert ops.launches == {**before, "weighted_agg_quant_sharded":
+                            before["weighted_agg_quant_sharded"] + 1}
+    torch.testing.assert_close(
+        got, weighted_agg_quant_sharded_plain(c, payload, scales, chunk,
+                                              nccl_rank),
+        **ops.TOLERANCE["weighted_agg_quant_sharded"][torch.int8])
+    assert torch.equal(got, ops.weighted_agg_quant(c, payload, scales,
+                                                   chunk=chunk))
+
+
+def test_sharded_all_reduce_refuses_a_cuda_tensor_on_gloo(card, tmp_path):
+    import torch.distributed as dist
+    from repro_torch.fed import make_fed_sharding
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="NCCL"):
+            make_fed_sharding().all_reduce(torch.ones(3, device=card))
+    finally:
+        dist.destroy_process_group()

@@ -19,6 +19,7 @@ import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+assert "repro_torch.fed.sharding" in names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
