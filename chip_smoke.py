@@ -10,9 +10,10 @@ it, and nothing of JAX or of the JAX package.  In order it
 
 1. prints the card (name and power limit, as nvidia-smi gives them), the
    torch and CUDA versions and the two TF32 flags;
-2. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-   and beside them two copies with a planted fault that the checks below
-   must catch: flash_attention with its first KV tile skipped
+2. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+   (printing each kernel's registers, shared memory and spills from the
+   ptxas report), and beside them copies with a planted fault that the
+   checks below must catch: flash_attention with its first KV tile skipped
    (FLASH_FAULT), weighted_agg_quant with every 16-code vector reading the
    scale of its first code (QUANT_FAULT), ssd_intra_chunk with the first key
    tile of every query tile that reads more than one skipped (SSD_FAULT);
@@ -67,8 +68,10 @@ it, and nothing of JAX or of the JAX package.  In order it
 8. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
-   composition of calls), and prints them, the sharded kernels' timings
-   from step 6 among them, as one ``{"kernels": [...]}`` line.
+   composition of calls; for flash_attention, scaled_dot_product_attention,
+   whose backend is named and each backend timed), and prints them, the
+   sharded kernels' timings from step 6 among them, as one
+   ``{"kernels": [...]}`` line.
 
 Any failure raises and the script exits nonzero.  The last line,
 ``{"ok": true, "device": {...}}``, is printed only when every phase passed.
@@ -122,11 +125,21 @@ FLASH_MAIN = (SERVE_BATCH, 48, 8, PROMPT_LEN, 128)
 FLASH_EDGES = [
     (2, 4, 2, 100, 128, torch.bfloat16, True),   # keys past S masked
     (2, 4, 2, 100, 32, torch.float32, True),     # the same in f32, hd 32
-    (2, 8, 8, 256, 32, torch.bfloat16, True),    # hd 32 on the tensor cores
+    (2, 8, 8, 256, 32, torch.bfloat16, True),    # hd 32 (64-byte swizzle)
     (1, 8, 2, 1000, 64, torch.bfloat16, False),  # hd 64, non-causal
     (1, 8, 2, 1000, 64, torch.float32, False),
     (1, 4, 1, 384, 128, torch.bfloat16, True),   # MQA (one KV head)
     (1, 4, 1, 384, 128, torch.float32, False),
+    # the bf16 kernel's tiles are 128 query rows by 128 keys: S shorter
+    # than one tile, one row past one and two tiles, KV = H, and hd 128
+    # non-causal over a ragged last tile
+    (1, 4, 2, 1, 128, torch.bfloat16, True),
+    (2, 4, 2, 17, 128, torch.bfloat16, True),
+    (1, 4, 2, 64, 64, torch.bfloat16, False),
+    (1, 4, 2, 129, 128, torch.bfloat16, True),
+    (1, 4, 2, 257, 128, torch.bfloat16, False),
+    (1, 8, 8, 300, 128, torch.bfloat16, True),
+    (1, 48, 8, 1000, 128, torch.bfloat16, False),
 ]
 # flash_attention in bf16 against the same attention computed in f32
 # (flash_attention_plain on f32 copies of q, k and v).  The kernel and its
@@ -149,12 +162,13 @@ BF16_SLACK = 1.0625
 # at most LOGITS_FACTOR times chunked's, in max abs error and in relative
 # norm.  A planted fault must fail both this bound and the kernel's
 # (BF16_UNIT): the bf16 kernel built with FLASH_FAULT, which skips the
-# first of the KV tiles wherever a query tile sees more than one.
+# first of the KV tiles wherever a query tile sees more than one.  It is
+# planted on the first tile of both the producer's and the consumers' loops
+# over kv_tiles, which still count their places in the ring from 0, so the
+# pipeline stays whole and the fault shows in the numbers instead of
+# hanging the card.
 LOGITS_FACTOR = 1.5
-FLASH_FAULT = ("for (int kt = 0; kt < n_kt; ++kt) {\n"
-               "    const int k0 = kt * BK;",
-               "for (int kt = n_kt > 1; kt < n_kt; ++kt) {\n"
-               "    const int k0 = kt * BK;")
+FLASH_FAULT = ("int kt = 0, it = 0;", "int kt = n > 1, it = 0;")
 # the reduced config in f32 on the card against the port's plain path on
 # the CPU: f32 in other summation orders (the kernel's f32 path, cuBLAS)
 REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -266,6 +280,26 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(report: str):
+    """One line per kernel of nvcc's -Xptxas -v report: its name, then its
+    spills, registers and shared memory."""
+    name, spills, lines = None, "", []
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True, timeout=10).stdout.strip()
+            except (OSError, subprocess.SubprocessError):
+                pass
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            lines.append(f"{name}: {spills}; "
+                         f"{line.split(':', 1)[1].strip()}")
+    return lines
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1697,10 +1731,13 @@ def time_flash_attention(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     B, H, KV, S, hd = FLASH_MAIN
     q, k, v = _qkv(dev, gen, B, H, KV, S, hd, torch.bfloat16)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
     kernel = device_ms(lambda: fa.launch(q, k, v), 20)
     plain = device_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
-    library = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20)
+    library = device_ms(sdpa, 20)
     # the (query, key) pairs causal masking keeps, two hd-long products
     # each; q, k, v read once and o written once in bf16
     flops = 4.0 * B * H * hd * S * (S + 1) / 2
@@ -1708,11 +1745,48 @@ def time_flash_attention(dev):
     bound, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
     log(f"  flash_attention, q ({B}, {H}, {S}, {hd}), k, v ({B}, {KV}, {S}, "
         f"{hd}) bf16, causal: kernel {kernel:.3f} ms "
-        f"({flops / kernel / 1e9:.1f} TFLOP/s), bound {bound:.3f} ms by "
-        f"{by}, plain {plain:.3f} ms, scaled_dot_product_attention("
-        f"is_causal=True, enable_gqa=True) {library:.3f} ms")
+        f"({flops / kernel / 1e9:.1f} TFLOP/s, {bound / kernel:.3f} of the "
+        f"bound), bound {bound:.3f} ms by {by}, plain {plain:.3f} ms, "
+        f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+        f"{library:.3f} ms ({flops / library / 1e9:.1f} TFLOP/s)")
+    sdpa_backends(sdpa, q, k, v)
     return dict(ms=kernel, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=library)
+
+
+def sdpa_backends(sdpa, q, k, v) -> None:
+    """Names the yardstick: the backend PyTorch's dispatcher picks for the
+    call and the kernels a profile of it records, then the call's time
+    under each backend that takes it."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        choice = SDPBackend(torch._fused_sdp_choice(
+            q, k, v, is_causal=True, enable_gqa=True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        choice = f"unknown ({e})"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA})
+    log(f"    the default scaled_dot_product_attention: backend {choice} "
+        f"(torch._fused_sdp_choice); kernels in a profile of it: "
+        f"{'; '.join(n[:100] for n in names) or 'none recorded'}")
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t = device_ms(sdpa, 20)
+            log(f"    under sdpa_kernel({backend.name}): {t:.3f} ms")
+        except RuntimeError as e:
+            log(f"    under sdpa_kernel({backend.name}): not taken "
+                f"({str(e).splitlines()[0][:100]})")
 
 
 def time_weighted_agg_quant(dev, D: int):
@@ -1908,7 +1982,8 @@ def main() -> None:
     from repro_torch.kernels import flash_attention, ssd_chunk, weighted_agg
     t0 = time.perf_counter()
     # the planted faults compile with the others, as controls
-    flash_job = start_planted_fault("flash_attention", FLASH_FAULT)
+    flash_job = start_planted_fault("flash_attention", FLASH_FAULT,
+                                    sites=2)
     quant_job = start_planted_fault("weighted_agg_quant", QUANT_FAULT)
     # both loops over key tiles, the f32 body's and the bf16 body's
     ssd_job = start_planted_fault("ssd_intra_chunk", SSD_FAULT, sites=2)
@@ -1920,9 +1995,8 @@ def main() -> None:
     log(f"build: {len(reports)} of {len(build.SOURCES)} sources compiled in "
         f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(report):
+            log(f"  {name}: {line}")
 
     from repro_torch.configs.paper import EMNIST_CNN
     from repro_torch.models.small import init_small

@@ -7,7 +7,8 @@ reading KV head h // (H / KV).  The output is (B, H, S, hd) in q's dtype.
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas kernel
 ``repro/kernels/flash_attention.py:64``; its source says what bounds it and
 how its design answers that.  It reads q, k and v through their strides
-(the head dim contiguous, every row on 16 bytes): the model hands it
+(the head dim contiguous, every row on 16 bytes; in bf16 through TMA tensor
+maps that the C entry point builds per launch): the model hands it
 transposed views of its (B, S, heads, hd) projections and no copy is made.
 It writes its output into a (B, S, H, hd) buffer and returns the
 (B, H, S, hd) view of it, so transposing back for the output projection is
@@ -29,7 +30,9 @@ SIGNATURES = {fn: (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
                for fn in _FN.values()}
 HEAD_DIMS = (32, 64, 128)
-MAX_BATCH_HEADS = 65535     # the CUDA grid's y limit: one grid row per (b, h)
+# the f32 kernel's grid has one row per (b, h), at most the CUDA grid's y
+# limit; the bf16 kernel's 1-D grid has no such limit
+F32_MAX_BATCH_HEADS = 65535
 NEG_INF = -1e30
 
 
@@ -107,9 +110,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the flash_attention kernel takes CUDA tensors, "
                          f"got {q.device}")
     B, H, S, hd = q.shape
-    if B * H > MAX_BATCH_HEADS:
-        raise ValueError(f"flash_attention takes B*H at most "
-                         f"{MAX_BATCH_HEADS}, got {B * H}")
+    if q.dtype == torch.float32 and B * H > F32_MAX_BATCH_HEADS:
+        raise ValueError(f"flash_attention in f32 takes B*H at most "
+                         f"{F32_MAX_BATCH_HEADS}, got {B * H}")
     out = torch.empty(B, S, H, hd, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_int64 * 12)(*_strides(q, "q"), *_strides(k, "k"),

@@ -70,8 +70,13 @@ def test_weighted_agg_kernel_refuses_rows_off_16_bytes(card, shape):
                        torch.ones(()))
 
 
+# (B, H, KV, S, hd); the bf16 kernel's tiles are 128 query rows by 128 keys:
+# S = 1, 17 and 64 lie inside one tile, 129 and 257 one row past a tile,
+# and (1, 8, 8, 300, 128) has KV = H
 FLASH_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 4, 1, 384, 128),
-                (2, 2, 2, 100, 32), (1, 48, 8, 1000, 128)]
+                (2, 2, 2, 100, 32), (1, 48, 8, 1000, 128),
+                (1, 4, 2, 1, 128), (2, 4, 2, 17, 128), (1, 4, 2, 64, 64),
+                (1, 4, 2, 129, 128), (1, 4, 2, 257, 128), (1, 8, 8, 300, 128)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -92,12 +97,14 @@ def test_flash_attention_kernel_matches_plain(card, B, H, KV, S, hd, dtype,
                                **ops.TOLERANCE["flash_attention"][dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernel_reads_strided_projections(card, dtype):
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+def test_flash_attention_kernel_reads_strided_projections(card, dtype, hd):
     # the model's layout: (B, S, heads, hd) projections, transposed views
     from repro_torch.kernels.flash_attention import flash_attention_plain
     gen = torch.Generator(device=card).manual_seed(7)
-    B, S, H, KV, hd = 2, 200, 8, 2, 64
+    B, S, H, KV = 2, 200, 8, 2
     q = torch.randn(B, S, H, hd, device=card, generator=gen).to(dtype)
     k = torch.randn(B, S, KV, hd, device=card, generator=gen).to(dtype)
     v = torch.randn(B, S, KV, hd, device=card, generator=gen).to(dtype)
@@ -109,6 +116,23 @@ def test_flash_attention_kernel_reads_strided_projections(card, dtype):
                                  v.transpose(1, 2))
     torch.testing.assert_close(got, want,
                                **ops.TOLERANCE["flash_attention"][dtype])
+
+
+def test_flash_attention_kernel_takes_more_than_65535_batch_heads(card):
+    # the bf16 kernel's grid is 1-D over (query tile, b * h); the f32
+    # kernel's has one row per (b, h) and refuses B * H above 65535
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    gen = torch.Generator(device=card).manual_seed(8)
+    B, H, KV, S, hd = 2, 32800, 8200, 5, 32
+    q, k, v = (torch.randn(B, n, S, hd, device=card, generator=gen)
+               .to(torch.bfloat16) for n in (H, KV, KV))
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, flash_attention_plain(q, k, v),
+        **ops.TOLERANCE["flash_attention"][torch.bfloat16])
+    with pytest.raises(ValueError, match="65535"):
+        ops.flash_attention(q.float(), k.float(), v.float())
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_read(card):
