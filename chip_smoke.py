@@ -16,7 +16,9 @@ it, and nothing of JAX or of the JAX package.  In order it
    checks below must catch: flash_attention with its first KV tile skipped
    (FLASH_FAULT), weighted_agg_quant with every 16-code vector reading the
    scale of its first code (QUANT_FAULT), ssd_intra_chunk with the first key
-   tile of every query tile that reads more than one skipped (SSD_FAULT);
+   tile of every query tile that reads more than one skipped (SSD_FAULT) and
+   with every head of a CTA given the decay and xdt rows of its first head
+   (SSD_HEAD_FAULT);
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes (and at edge shapes that take other code), at the
    tolerances of ``repro_torch.kernels.ops`` (weighted_agg_quant: equal),
@@ -25,7 +27,7 @@ it, and nothing of JAX or of the JAX package.  In order it
    ssd_intra_chunk at the serving prefill's shape with the upper triangle
    overflowing exp (no NaN or inf), in bf16 also against the function in
    f32 within its rounding bound (at the serving cell count on three
-   draws);
+   draws), both of its planted faults outside ops.TOLERANCE there;
 4. drives the federated round, ``FederatedTrainer(engine="plan")`` on the
    EMNIST CNN at full width with 62 clients, through one late arrival and
    one excluding departure; checks each kernel's launch count, finite eval
@@ -68,10 +70,14 @@ it, and nothing of JAX or of the JAX package.  In order it
 8. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
-   composition of calls; for flash_attention, scaled_dot_product_attention,
-   whose backend is named and each backend timed), and prints them, the
-   sharded kernels' timings from step 6 among them, as one
-   ``{"kernels": [...]}`` line.
+   composition of calls, ssd_intra_chunk's computing the group's scores
+   once for its heads as the kernel does; for flash_attention,
+   scaled_dot_product_attention, whose backend is named and each backend
+   timed), and prints them, the sharded kernels' timings from step 6 among
+   them, as one ``{"kernels": [...]}`` line.  ssd_intra_chunk's bound
+   counts the group's scores once per pair, as its inputs need, and the
+   per-head reckoning (the scores counted once per head) is printed
+   beside it.
 
 Any failure raises and the script exits nonzero.  The last line,
 ``{"ok": true, "device": {...}}``, is printed only when every phase passed.
@@ -197,6 +203,21 @@ SSD_EDGES = [
 # many draws of its inputs, the generator running on between them, so that
 # the rounding bound's reading there rests on more than one draw
 SSD_BF16_DRAWS = 3
+# (outer cells, Q) of f32 prefills whose whole groups fill fewer CTAs than
+# the card has SMs, so that heads_per_cta cuts the heads into blocks: a
+# batch of 4 prompts of 64 tokens (the serve CLI's default), one prompt of
+# 4,096 tokens, one of 1,024
+SSD_SPLIT = [(4, 64), (16, 256), (4, 256)]
+# In f32 the kernel is held to ops.TOLERANCE against its plain version,
+# which at the serving widths it meets only by summing in the plain
+# version's order (another f32 order, or the f64 answer, leaves it), and
+# beside that against the function in f64 (exp taken where j <= i) within
+# the rounding bound of any f32 order, SSD_F32_BOUND:
+#   |y - y64| <= 2^-24 sum_j (sum_n |C_in| |B_jn|) L_ij (N + Q + 8 + |d_ij|)
+#                |xdt_j|,   d_ij = cum_i - cum_j,
+# the two sums' lengths N and Q, the decay's f32 difference (|d| units of
+# the exponent), and 8 units for expf (2 ulp), the products' roundings and
+# second-order terms.
 # ssd_intra_chunk in bf16 against the same function in f32
 # (ssd_intra_chunk_plain on the bf16 inputs): the kernel rounds each score
 # s_ij (the decay applied) to bf16 once, a relative error of at most 2^-8,
@@ -209,9 +230,16 @@ SSD_BF16_DRAWS = 3
 # leaves an element or so of 25 M outside its atol of 0.4, and the bound
 # above holds the kernel there.  A planted fault must fail every one of
 # these bounds: the kernel built with SSD_FAULT, which skips the first key
-# tile of every query tile that reads more than one.
+# tile of every query tile that reads more than one.  It is planted on the
+# f32 kernel's loops over a head's key tiles, the producer's and the
+# consumers' (which count their places in the ring apart from the tile, so
+# the pipeline stays whole), and on the bf16 kernel's loop.
 SSD_FAULT = ("for (int kt = 0; kt < n_kt; ++kt) {",
              "for (int kt = n_kt > 1; kt < n_kt; ++kt) {")
+# the f32 kernel built with every head of a CTA staged from the block's
+# first head (its cum, so its decay, and its xdt rows): where a CTA takes
+# several heads (the serving prefill's shape) it must fail ops.TOLERANCE
+SSD_HEAD_FAULT = ("const int h = h0 + h1 + g;", "const int h = h0;")
 # the prefill logits of mamba2-130m in bf16, the intra-chunk term from the
 # kernel and from its plain version (same weights and prompts), against one
 # reference: the same model with the intra-chunk term summed in f64 and
@@ -378,18 +406,20 @@ def _qkv(dev, gen, B, H, KV, S, hd, dtype):
             .transpose(1, 2) for n in (H, KV, KV)]
 
 
-def start_planted_fault(name: str, fault, sites: int = 1):
+def start_planted_fault(name: str, fault, sites: int = 1,
+                        tag: str = "planted_fault"):
     """Starts nvcc on csrc/<name>.cu with ``fault`` (old, new) planted at
-    each of its ``sites``; returns the library's path and the compile."""
+    each of its ``sites``, into lib<name>_<tag>.so; returns the library's
+    path and the compile."""
     from repro_torch.kernels import build
     text = (build.CSRC / f"{name}.cu").read_text()
     if text.count(fault[0]) != sites:
         raise RuntimeError(f"the planted fault's line is not in {name}.cu "
                            f"{sites} time(s)")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = build.BUILD_DIR / f"{name}_planted_fault.cu"
+    src = build.BUILD_DIR / f"{name}_{tag}.cu"
     src.write_text(text.replace(*fault))
-    target = src.with_name(f"lib{name}_planted_fault.so")
+    target = src.with_name(f"lib{name}_{tag}.so")
     return target, build.compile_source(src, target)
 
 
@@ -578,13 +608,37 @@ def ssd_bf16_reference(cum, C, B, xdt):
     return excess, pallas
 
 
-def check_ssd_intra_chunk(dev, planted) -> float:
+def ssd_f32_reference(cum, C, B, xdt):
+    """The function in f64; returns the function that measures an f32
+    output against it in units of its f32 rounding bound, SSD_F32_BOUND."""
+    Q, N = cum.shape[-1], C.shape[-1]
+    cum = cum.double()
+    d = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=cum.device).tril()
+    L = torch.where(mask, torch.exp(torch.where(mask, d, 0.0)), 0.0)
+    Cd, Bd, xd = C.double(), B.double(), xdt.double()
+    y64 = (torch.einsum("...qn,...sn->...qs", Cd, Bd) * L) @ xd
+    W = L * (N + Q + 8 + d.abs_())
+    del d, L
+    bound = (torch.einsum("...qn,...sn->...qs", Cd.abs(), Bd.abs()) * W) \
+        @ xd.abs()
+    bound.mul_(2.0 ** -24)
+    del W, Cd, Bd, xd
+
+    def excess(o):
+        return ((o.double() - y64).abs_() / bound.clamp_min(1e-300)).max() \
+            .item()
+    return excess
+
+
+def check_ssd_intra_chunk(dev, planted, planted_head) -> float:
     """The kernel against its plain version at the serving prefill's shape
     (f32, the model's layout) and the edge shapes; no NaN or inf; bf16 also
-    against the function in f32 within its rounding bound.  The planted
-    fault must fail ops.TOLERANCE at the serving shape and, in bf16, both
-    ops.TOLERANCE and the rounding bound.  Returns the serving shape's max
-    abs error."""
+    against the function in f32 within its rounding bound, f32 also
+    against the function in f64 within SSD_F32_BOUND.  The planted fault
+    (SSD_FAULT) must fail ops.TOLERANCE and the rounding bound of its type
+    wherever it skips a tile; SSD_HEAD_FAULT must fail ops.TOLERANCE at the
+    serving shape.  Returns the serving shape's max abs error."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as sc
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -630,6 +684,18 @@ def check_ssd_intra_chunk(dev, planted) -> float:
                 raise RuntimeError("the bf16 bound does not see the planted "
                                    "fault")
             del excess, pallas
+        else:
+            excess = ssd_f32_reference(cum, C, B, xdt)
+            x_got, x_bad = excess(got), excess(bad)
+            log(f"    against the function in f64: max |y - y64| / "
+                f"SSD_F32_BOUND kernel {x_got:.4f} (bound 1), plain version "
+                f"{excess(want):.4f}, planted fault {x_bad:.4f}")
+            if x_got > 1.0:
+                raise RuntimeError("ssd_intra_chunk is off its f32 bound")
+            if Q > 64 and x_bad <= 1.0:
+                raise RuntimeError("the f32 bound does not see the planted "
+                                   "fault")
+            del excess
         # ops.TOLERANCE (the reference suite's) in f32, and in bf16 at the
         # reference suite's sizes; the bf16 rounding of the scores alone
         # (the Pallas body's own arithmetic) leaves it at the serving cell
@@ -641,6 +707,14 @@ def check_ssd_intra_chunk(dev, planted) -> float:
                                    "fault")
         if (G, heads, Q, N, P, dtype) == SSD_MAIN:
             main_err = err
+            bad_head = sc.launch(cum, C, B, xdt, lib=planted_head)
+            log(f"    planted fault with every head of a CTA staged from "
+                f"its first head: {max_abs_err(bad_head, want):.3e}; "
+                f"the first key tile skipped: {max_abs_err(bad, want):.3e}")
+            if torch.allclose(bad_head, want, **tol):
+                raise RuntimeError("ops.TOLERANCE does not see the planted "
+                                   "head fault at the serving shape")
+            del bad_head
         del cum, C, B, xdt, got, want, bad
         torch.cuda.empty_cache()
     return main_err
@@ -1931,32 +2005,76 @@ def time_ssd_intra_chunk(dev):
     cum, C, B, xdt = ssd_inputs(dev, gen, G, Q, N, P, dtype, H)
     kernel = device_ms(lambda: sc.launch(cum, C, B, xdt), 20)
     plain = device_ms(lambda: sc.ssd_intra_chunk_plain(cum, C, B, xdt), 5)
-    # the composition on (cells, Q, n) copies made beforehand (a batched
-    # product cannot read the stride-0 head dim), L built in the call
-    c3, b3, x3 = (t.reshape(G * H, Q, -1).contiguous() for t in (C, B, xdt))
-    cum3 = cum.reshape(G * H, Q)
+    # the composition, as the kernel does it, computes the group's scores
+    # once per outer cell and broadcasts them over the heads; its operands
+    # are (cells, Q, n) copies made beforehand (a batched product cannot
+    # read the stride-0 head dim or the strided xdt), L built in the call
+    c_g, b_g = (t[:, 0].contiguous() for t in (C, B))
+    x3 = xdt.reshape(G * H, Q, P).contiguous()
     mask = torch.ones(Q, Q, dtype=torch.bool, device=dev).tril()
 
     def composition():
-        L = torch.where(mask, torch.exp(cum3[:, :, None] - cum3[:, None, :]),
+        L = torch.where(mask, torch.exp(cum[..., :, None] - cum[..., None, :]),
                         0.0)
-        return torch.bmm(torch.bmm(c3, b3.mT) * L, x3)
+        s = torch.bmm(c_g, b_g.mT)[:, None] * L
+        return torch.bmm(s.view(G * H, Q, Q), x3)
     comp = device_ms(composition, 5)
-    # the (i, j <= i) pairs of every cell, a product of N-long rows and one
-    # of P-long ones each; cum, the group's C and B rows, xdt read once and
-    # the output written once, in f32
-    pairs = G * H * Q * (Q + 1) / 2
-    flops = 2.0 * pairs * (N + P)
+    # the (i, j <= i) pairs of every cell: the group's scores once per outer
+    # cell and pair (N-long rows), each head's product (P-long rows); cum,
+    # the group's C and B rows, xdt read once and the output written once,
+    # in f32.  The per-head reckoning counts the scores once per head.
+    pairs = Q * (Q + 1) / 2
+    flops = 2.0 * G * pairs * N + 2.0 * G * H * pairs * P
+    flops_per_head = 2.0 * G * H * pairs * (N + P)
     n_bytes = 4 * (G * H * Q + 2 * G * Q * N + 2 * G * H * Q * P)
     bound, by = bound_ms(n_bytes, flops)
+    per_head, _ = bound_ms(n_bytes, flops_per_head)
     log(f"  ssd_intra_chunk, cells ({G}, {H}) of Q={Q}, N={N}, P={P} f32, "
         f"C and B shared by the {H} heads: kernel {kernel:.3f} ms "
-        f"({flops / kernel / 1e9:.1f} TFLOP/s causal), bound {bound:.3f} ms "
-        f"by {by}, plain {plain:.3f} ms; no single PyTorch call computes it: "
-        f"the composition torch.bmm(torch.bmm(C, B.mT) * L, xdt), L by "
-        f"torch.where, {comp:.3f} ms")
+        f"({flops / kernel / 1e9:.1f} TFLOP/s of the work these inputs "
+        f"need, {bound / kernel:.3f} of the bound), bound {bound:.3f} ms by "
+        f"{by} ({flops / 1e9:.2f} GFLOP at the f32 CUDA-core peak against "
+        f"{n_bytes / 1e6:.1f} MB; the column's bound), the per-head "
+        f"reckoning {per_head:.3f} ms "
+        f"({flops_per_head / 1e9:.2f} GFLOP); plain {plain:.3f} ms; no "
+        f"single PyTorch call computes it: the group-shared composition "
+        f"torch.bmm(torch.bmm(C_g, B_g.mT)[:, None] * L, xdt), L by "
+        f"torch.where, {comp:.3f} ms with "
+        f"torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
     return dict(ms=kernel, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=None, composition_ms=comp)
+
+
+def time_ssd_head_blocks(dev) -> None:
+    """The f32 kernel where whole groups fill too few CTAs for the card's
+    SMs and heads_per_cta cuts a group's heads into blocks (SSD_SPLIT):
+    its time at the heads per CTA chosen, at all the group's heads and at
+    one head per CTA, each output held to ops.TOLERANCE of the plain
+    version."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ssd_chunk as sc
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_wg = build.load("ssd_intra_chunk", sc.SIGNATURES) \
+        .ssd_intra_chunk_f32_warpgroups(SSD_P)
+    for Go, Q in SSD_SPLIT:
+        cum, C, B, xdt = ssd_inputs(dev, gen, Go, Q, SSD_N, SSD_P,
+                                    torch.float32, SSD_HEADS)
+        want = sc.ssd_intra_chunk_plain(cum, C, B, xdt)
+        chosen = sc.heads_per_cta(Go, SSD_HEADS, Q, True, n_sm, n_wg)
+        times = {}
+        for heads in dict.fromkeys((chosen, SSD_HEADS, 1)):
+            torch.testing.assert_close(
+                sc.launch(cum, C, B, xdt, heads=heads), want,
+                **ops.TOLERANCE["ssd_intra_chunk"][torch.float32])
+            times[heads] = device_ms(
+                lambda: sc.launch(cum, C, B, xdt, heads=heads), 20)
+        log(f"  ssd_intra_chunk head blocks, cells ({Go}, {SSD_HEADS}) of "
+            f"Q={Q} ({Go * -(-Q // sc.BQ)} CTAs of whole groups, {n_sm} "
+            f"SMs): " + ", ".join(
+                f"{h} heads per CTA{' (chosen)' if h == chosen else ''} "
+                f"{ms:.4f} ms" for h, ms in times.items()))
 
 
 def main() -> None:
@@ -1985,13 +2103,18 @@ def main() -> None:
     flash_job = start_planted_fault("flash_attention", FLASH_FAULT,
                                     sites=2)
     quant_job = start_planted_fault("weighted_agg_quant", QUANT_FAULT)
-    # both loops over key tiles, the f32 body's and the bf16 body's
-    ssd_job = start_planted_fault("ssd_intra_chunk", SSD_FAULT, sites=2)
+    # the loops over a head's key tiles: the f32 producer's and consumers',
+    # and the bf16 body's
+    ssd_job = start_planted_fault("ssd_intra_chunk", SSD_FAULT, sites=3)
+    ssd_head_job = start_planted_fault("ssd_intra_chunk", SSD_HEAD_FAULT,
+                                       tag="planted_head_fault")
     reports = build.build()
     planted = finish_planted_fault(*flash_job, flash_attention.SIGNATURES)
     planted_quant = finish_planted_fault(*quant_job,
                                          weighted_agg.QUANT_SIGNATURES)
     planted_ssd = finish_planted_fault(*ssd_job, ssd_chunk.SIGNATURES)
+    planted_ssd_head = finish_planted_fault(*ssd_head_job,
+                                            ssd_chunk.SIGNATURES)
     log(f"build: {len(reports)} of {len(build.SOURCES)} sources compiled in "
         f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
     for name, report in reports.items():
@@ -2009,7 +2132,7 @@ def main() -> None:
     flash_err = check_flash_attention(dev, planted)
     quant_err = check_weighted_agg_quant(dev, D, planted_quant)
     check_quant_memory(dev, D)
-    ssd_err = check_ssd_intra_chunk(dev, planted_ssd)
+    ssd_err = check_ssd_intra_chunk(dev, planted_ssd, planted_ssd_head)
 
     f32_trainer, launches, f32_profile, f32_params = main_path(dev)
     int8_trainer, int8_launches, int8_params = compressed_path(
@@ -2029,6 +2152,7 @@ def main() -> None:
     flash_t = time_flash_attention(dev)
     quant_t = time_weighted_agg_quant(dev, D)
     ssd_t = time_ssd_intra_chunk(dev)
+    time_ssd_head_blocks(dev)
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
         dict(name="weighted_agg", route="cuda",

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` becomes a shared library of its own with a plain C
 interface (no PyTorch headers, so nvcc takes seconds), compiled for
 ``sm_90a`` at the first launch into ``build/repro_torch/`` at the root of
-the checkout, which .gitignore lists.  The library's file name carries a
-hash of its source and flags: an edited source is rebuilt, an unchanged one
-is loaded as it is.  Nothing here runs at import, so the CPU tests import
+the checkout, which .gitignore lists.  The sources include the headers of
+``csrc/`` (``*.cuh``), which is on nvcc's include path.  The library's file
+name carries a hash of its source, the headers and the flags: an edited
+source or header is rebuilt, an unchanged one is loaded as it is.  Nothing here runs at import, so the CPU tests import
 the package on a machine with no nvcc.
 """
 from __future__ import annotations
@@ -38,16 +39,18 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
 def compile_source(src: Path, target: Path) -> subprocess.Popen:
     """Starts nvcc on one source into the library ``target``, with the
-    flags above; the caller waits for it (stdout holds nvcc's report)."""
+    flags above and ``csrc/``'s headers on the include path (``src`` may lie
+    elsewhere); the caller waits for it (stdout holds nvcc's report)."""
     return subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(target), str(src)],
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(target), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

@@ -74,15 +74,15 @@
 // contiguous), so the output goes straight into the (B, S, H, hd) layout the
 // output projection reads: no transposing copy on either side.
 //
-// cuTensorMapEncodeTiled, a CUDA driver API function, is taken through
-// cudaGetDriverEntryPoint, so the library links no libcuda (build.py's link
-// line is the other kernels').
-#include <cuda.h>  // CUtensorMap and its enums: types only, nothing to link
+// The mbarrier and TMA helpers and the driver's tensor-map encoder come from
+// hopper_async.cuh, which ssd_intra_chunk.cu shares.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+
+#include "hopper_async.cuh"
 
 namespace {
 
@@ -145,55 +145,6 @@ struct TileArgs {
   int n_bh;        // B * H
   float scale_log2;  // 1/sqrt(hd) * log2(e)
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// One TMA copy of a box of the 4-D map into shared memory at `dst`, its
-// bytes counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
 
 // A wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units) and the swizzle mode (bits 62-63: 1 for 128
@@ -743,32 +694,6 @@ __global__ void __launch_bounds__(F32_BQ * HD / 32)
     *reinterpret_cast<float4*>(op + (i * TPR + part) * 4) =
         make_float4(acc[i].x / den, acc[i].y / den, acc[i].z / den,
                     acc[i].w / den);
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found once; null if it is not there
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // The 4-D map (hd, S, heads, B) of a bf16 tensor with element strides

@@ -6,9 +6,8 @@ cum[g, j]) for j <= i and 0 above the diagonal; cum (G, Q) f32, C and B
 (G, Q, N), xdt (G, Q, P) in f32 or bf16, the output (G, Q, P) in f32.
 
 The kernel (``csrc/ssd_intra_chunk.cu``) replaces the Pallas kernel
-``repro/kernels/ssd_chunk.py:43``; its source says what bounds it and how
-its design answers that.  Besides the reference's (G, ...) cells it takes
-cells split as (outer, inner), ``cum`` (Go, Gi, Q) and the others
+``repro/kernels/ssd_chunk.py:43``.  Besides the reference's (G, ...) cells
+it takes cells split as (outer, inner), ``cum`` (Go, Gi, Q) and the others
 (Go, Gi, Q, ...), each read through its strides with the last dim
 contiguous: the heads of one SSD group then read the group's B and C rows
 through a stride-0 inner dim (an ``expand`` view), with no per-head copy.
@@ -16,6 +15,18 @@ For such cells it writes its output into a (Go, Q, Gi, P) buffer and
 returns the (Go, Gi, Q, P) view of it, the layout ``models.ssd`` adds the
 inter-chunk term to.  Callers go through
 ``repro_torch.kernels.ops.ssd_intra_chunk``.
+
+In f32, the serving path's type, the kernel is bound by operations on the
+CUDA cores: at the mamba2-130m prefill (cells (64, 24), Q 256, N 128, P
+64) the group's scores once per (outer cell, pair j <= i) and each head's
+product come to 7.01 GFLOP, 0.105 ms at 67 TFLOP/s, against 0.066 ms for
+its bytes.  So where C and B reach the heads through a stride-0 head dim
+(``group_shared``) one CTA computes the scores of a query tile once and
+applies every head's decay and xdt to them (``heads_per_cta`` says how
+many heads it takes); a producer warp stages its tiles by TMA and bulk
+copies on mbarriers, and both products are f32 FMA sums in the plain
+version's order, which split-precision TF32 on the tensor cores would
+not keep within ``ops.TOLERANCE``.  The source says more.
 """
 from __future__ import annotations
 
@@ -27,8 +38,11 @@ from repro_torch.kernels import build
 
 _FN = {torch.float32: "ssd_intra_chunk_f32",
        torch.bfloat16: "ssd_intra_chunk_bf16"}
-SIGNATURES = {fn: (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
-              + (ctypes.c_void_p,) for fn in _FN.values()}
+# the f32 entry also takes the heads per CTA; ssd_intra_chunk_f32_warpgroups
+# gives the f32 kernel's consumer warpgroups at a width P
+SIGNATURES = {fn: (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * n
+              + (ctypes.c_void_p,) for fn, n in zip(_FN.values(), (6, 5))}
+SIGNATURES["ssd_intra_chunk_f32_warpgroups"] = (ctypes.c_int,)
 MAX_N = 256
 WIDE_P = (32, 64, 128)      # P above 16 the kernel takes
 MAX_GRID = 2 ** 31 - 1      # the CUDA grid's x limit: cells * query tiles
@@ -78,6 +92,31 @@ def ssd_intra_chunk_plain(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
     return torch.einsum("...qs,...sp->...qp", s, xdt.float())
 
 
+def group_shared(C: torch.Tensor, B: torch.Tensor) -> bool:
+    """Whether the f32 kernel computes the scores once for several heads:
+    (Go, Gi, Q, N) cells of more than one head whose C and B both come
+    through a stride-0 head dim (the model's layout).  Flat cells, and C
+    or B shared alone, take one head per CTA."""
+    return C.dim() == 4 and C.shape[1] > 1 and C.stride(1) == 0 \
+        and B.stride(1) == 0
+
+
+def heads_per_cta(Go: int, Gi: int, Q: int, shared: bool, n_sm: int,
+                  n_wg: int) -> int:
+    """The heads one CTA of the f32 kernel takes: 1 unless the heads share
+    C and B (``group_shared``); else all Gi of a cell, cut into as few
+    blocks as give at least ``n_sm`` CTAs (one per SM), a cut block
+    holding a multiple of the kernel's ``n_wg`` consumer warpgroups, which
+    take its heads in turn (``ssd_intra_chunk_f32_warpgroups``)."""
+    if not shared:
+        return 1
+    splits = -(-n_sm // (Go * -(-Q // BQ)))
+    if splits <= 1:
+        return Gi
+    heads = -(-Gi // splits)
+    return min(Gi, -(-heads // n_wg) * n_wg)
+
+
 def _strides(t: torch.Tensor, name: str, last_contiguous: bool = True):
     """(outer, inner, row) element strides of a (Go, Gi, Q[, n]) view."""
     if last_contiguous and t.stride(-1) != 1 and t.shape[-1] > 1:
@@ -87,14 +126,16 @@ def _strides(t: torch.Tensor, name: str, last_contiguous: bool = True):
 
 
 def launch(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
-           xdt: torch.Tensor, lib=None) -> torch.Tensor:
+           xdt: torch.Tensor, lib=None, heads: int | None = None
+           ) -> torch.Tensor:
     """One launch of the CUDA kernel on PyTorch's current stream; returns
     the f32 output, (G, Q, P), or for (Go, Gi) cells the (Go, Gi, Q, P)
     view of a (Go, Q, Gi, P) buffer.  Raises on arguments the kernel does
     not take and when the launch is refused.  ``lib`` is the library to
     launch from, by default the one built from ``csrc/ssd_intra_chunk.cu``;
     another one (opened with ``SIGNATURES``) must have the same C
-    interface."""
+    interface.  ``heads`` sets the f32 kernel's heads per CTA, by default
+    ``heads_per_cta``'s choice (above 1 only where ``group_shared``)."""
     if not C.is_cuda:
         raise ValueError(f"the ssd_intra_chunk kernel takes CUDA tensors, got "
                          f"{C.device}")
@@ -116,11 +157,19 @@ def launch(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
         *_strides(cum, "cum", False), *_strides(C, "C"), *_strides(B, "B"),
         *_strides(xdt, "xdt"), *_strides(out, "out"))
     lib = lib or build.load("ssd_intra_chunk", SIGNATURES)
-    fn = getattr(lib, _FN[C.dtype])
+    args = [Go, Gi, Q, N, P]
+    if C.dtype == torch.float32:
+        if heads is None:
+            n_sm = torch.cuda.get_device_properties(
+                C.device).multi_processor_count
+            heads = heads_per_cta(Go, Gi, Q, group_shared(C, B), n_sm,
+                                  lib.ssd_intra_chunk_f32_warpgroups(P))
+        args.append(heads)
     with torch.cuda.device(C.device):
-        err = fn(cum.data_ptr(), C.data_ptr(), B.data_ptr(), xdt.data_ptr(),
-                 out.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), Go,
-                 Gi, Q, N, P, torch.cuda.current_stream().cuda_stream)
+        err = getattr(lib, _FN[C.dtype])(
+            cum.data_ptr(), C.data_ptr(), B.data_ptr(), xdt.data_ptr(),
+            out.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), *args,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ssd_intra_chunk launch failed with CUDA error "
                            f"{err}")

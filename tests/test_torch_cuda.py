@@ -250,9 +250,28 @@ def _ssd_inputs(card, G, Q, N, P, dtype, seed):
     return cum, C, B, xdt
 
 
+def _f32_excess(got, cum, C, B, xdt):
+    """max |got - y64| over the f32 rounding bound of any summation order
+    (chip_smoke.SSD_F32_BOUND): 2^-24 sum_j (sum_n |C_in| |B_jn|) L_ij
+    (N + Q + 8 + |cum_i - cum_j|) |xdt_j|, L the decay where j <= i."""
+    Q, N = cum.shape[-1], C.shape[-1]
+    cum = cum.double()
+    d = cum[..., :, None] - cum[..., None, :]
+    keep = torch.ones(Q, Q, dtype=torch.bool, device=cum.device).tril()
+    L = torch.where(keep, torch.exp(torch.where(keep, d, 0.0)), 0.0)
+    Cd, Bd, xd = C.double(), B.double(), xdt.double()
+    y64 = (torch.einsum("...qn,...sn->...qs", Cd, Bd) * L) @ xd
+    bound = 2.0 ** -24 * ((torch.einsum("...qn,...sn->...qs", Cd.abs(),
+                                        Bd.abs())
+                           * L * (N + Q + 8 + d.abs())) @ xd.abs())
+    return ((got.double() - y64).abs() / bound.clamp_min(1e-300)).max() \
+        .item()
+
+
 SSD_SHAPES = [(96, 256, 128, 64), (6, 16, 8, 8), (6, 64, 32, 16),
               (6, 128, 64, 64), (12, 1, 128, 64), (12, 100, 128, 64),
-              (12, 32, 16, 32), (5, 200, 40, 128), (3, 70, 7, 5)]
+              (12, 32, 16, 32), (5, 200, 40, 128), (3, 70, 7, 5),
+              (4, 600, 256, 128), (3, 300, 12, 4)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -268,27 +287,81 @@ def test_ssd_intra_chunk_kernel_matches_plain(card, G, Q, N, P, dtype):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ssd_intra_chunk_plain(cum, C, B, xdt),
                                **ops.TOLERANCE["ssd_intra_chunk"][dtype])
+    if dtype == torch.float32:
+        assert _f32_excess(got, cum, C, B, xdt) <= 1.0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_intra_chunk_kernel_reads_group_shared_rows(card, dtype):
-    """The model's layout: (batch*chunks, heads) cells, C and B of one
-    group expanded over its heads with stride 0, xdt a strided view of
-    (batch*chunks, Q, heads, P); the output a view of (.., Q, heads, P)."""
-    from repro_torch.kernels.ssd_chunk import ssd_intra_chunk_plain
-    Go, H, Q, N, P = 6, 4, 256, 128, 64
-    cum, C, B, _ = _ssd_inputs(card, Go * H, Q, N, P, dtype, 11)
+def _ssd_split_cells(card, Go, H, Q, N, P, dtype, shared=("C", "B")):
+    """The model's layout: (batch*chunks, heads) cells, C and B of one group
+    expanded over its heads with stride 0 (those named in ``shared``; the
+    others one per head), xdt a strided view of (batch*chunks, Q, heads,
+    P)."""
+    cum, C, B, _ = _ssd_inputs(card, Go * H, Q, N, P, dtype, 11 + H + Q)
     cum = cum.view(Go, H, Q)
-    C = C.view(Go, H, Q, N)[:, :1].expand(Go, H, Q, N)
-    B = B.view(Go, H, Q, N)[:, :1].expand(Go, H, Q, N)
+    C, B = (t.view(Go, H, Q, N)[:, :1].expand(Go, H, Q, N) if name in shared
+            else t.view(Go, H, Q, N) for t, name in ((C, "C"), (B, "B")))
     gen = torch.Generator(device=card).manual_seed(12)
     xdt = torch.randn(Go, Q, H, P, device=card, generator=gen).to(dtype) \
         .transpose(1, 2)
+    return cum, C, B, xdt
+
+
+# Q = 600 takes the f32 kernel's windows of four key tiles
+@pytest.mark.parametrize("Q", [256, 100, 600])
+@pytest.mark.parametrize("heads", [24, 5, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel_reads_group_shared_rows(card, dtype, heads,
+                                                        Q):
+    """The model's layout, the output a view of (.., Q, heads, P); in f32
+    the group's scores are computed once for the heads of a CTA."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra_chunk_plain
+    Go, N, P = 6, 128, 64
+    cum, C, B, xdt = _ssd_split_cells(card, Go, heads, Q, N, P, dtype)
+    before = ops.launches["ssd_intra_chunk"]
     got = ops.ssd_intra_chunk(cum, C, B, xdt)
     torch.cuda.synchronize()
-    assert got.shape == (Go, H, Q, P) and got.transpose(1, 2).is_contiguous()
+    assert ops.launches["ssd_intra_chunk"] == before + 1
+    assert got.shape == (Go, heads, Q, P)
+    assert got.transpose(1, 2).is_contiguous()
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ssd_intra_chunk_plain(cum, C, B, xdt),
                                **ops.TOLERANCE["ssd_intra_chunk"][dtype])
+    if dtype == torch.float32:
+        assert _f32_excess(got, cum, C, B, xdt) <= 1.0
+
+
+@pytest.mark.parametrize("shared", [("C",), ("B",)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel_reads_c_or_b_shared_alone(card, dtype,
+                                                          shared):
+    """Only one of C and B through a stride-0 head dim: one head per CTA,
+    each reading its own rows of the other."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra_chunk_plain
+    cum, C, B, xdt = _ssd_split_cells(card, 6, 8, 256, 128, 64, dtype,
+                                      shared)
+    got = ops.ssd_intra_chunk(cum, C, B, xdt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ssd_intra_chunk_plain(cum, C, B, xdt),
+                               **ops.TOLERANCE["ssd_intra_chunk"][dtype])
+
+
+@pytest.mark.parametrize("heads", [1, 5, 24])
+def test_ssd_intra_chunk_f32_kernel_takes_any_heads_per_cta(card, heads):
+    """The f32 kernel at a set number of heads per CTA, blocks that do not
+    divide the group's 24 heads included, against its plain version; the
+    library's count of consumer warpgroups."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_chunk as sc
+    lib = build.load("ssd_intra_chunk", sc.SIGNATURES)
+    assert [lib.ssd_intra_chunk_f32_warpgroups(P) for P in (16, 64, 128)] \
+        == [3, 3, 2]
+    cum, C, B, xdt = _ssd_split_cells(card, 4, 24, 256, 128, 64,
+                                      torch.float32)
+    got = sc.launch(cum, C, B, xdt, heads=heads)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, sc.ssd_intra_chunk_plain(cum, C, B, xdt),
+        **ops.TOLERANCE["ssd_intra_chunk"][torch.float32])
 
 
 def test_ssd_intra_chunk_kernel_refuses_what_it_cannot_read(card):

@@ -9,6 +9,7 @@ kernel's view of the chunked scan 2e-3 (``:252``), the chunked scan 1e-3
 (``tests/test_ssd.py:42-45``), the serving path 1e-4
 (``tests/test_decode.py:32-41``); the building blocks are f32 values in
 another summation order (1e-5)."""
+import ctypes
 import dataclasses
 
 import jax
@@ -140,6 +141,230 @@ def test_upper_triangle_overflow_gives_no_nan():
     want = ref_oracles.ssd_intra_chunk_ref(*(jnp.asarray(t.numpy())
                                              for t in (cum, C, B, x)))
     _close(got, want, **ops.TOLERANCE["ssd_intra_chunk"][torch.float32])
+
+
+# -- the f32 kernel's arithmetic, emulated in plain PyTorch ---------------------
+
+def _serving_draw(seed, G, H, Q, N, P):
+    """Inputs as chip_smoke.ssd_inputs draws them, from numpy: dt
+    log-uniform in [1e-3, 1e-1] per position and A in [-16, -1] per cell,
+    so that above the diagonal cum_i - cum_j overflows exp in many cells;
+    the model's layout, cells (G, H) with C and B of each outer cell shared
+    by its H heads through a stride-0 dim; C, B and xdt normal."""
+    rng = np.random.default_rng(seed)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (G, H, Q)))
+    A = -rng.uniform(1.0, 16.0, (G, H, 1))
+    cum = _t(np.cumsum(dt * A, -1).astype(np.float32))
+    C, B = (_t(rng.normal(size=(G, 1, Q, N)).astype(np.float32))
+            .expand(G, H, Q, N) for _ in range(2))
+    xdt = _t(rng.normal(size=(G, Q, H, P)).astype(np.float32)).transpose(1, 2)
+    return cum, C, B, xdt
+
+
+def _decay(cum):
+    """L[i, j] = exp(cum_i - cum_j) where j <= i, else 0, the exponent taken
+    only where j <= i (exp(0) elsewhere, never the overflowing one)."""
+    Q = cum.shape[-1]
+    keep = torch.ones(Q, Q, dtype=torch.bool).tril()
+    diff = cum[..., :, None] - cum[..., None, :]
+    return torch.where(keep, torch.exp(torch.where(keep, diff, 0.0)), 0.0)
+
+
+def _group_shared(cum, C, B, xdt, product=torch.matmul):
+    """The f32 kernel's arithmetic where a CTA takes a group's heads: the
+    scores C_g B_g^T once per outer cell (C and B read at head 0 of the
+    stride-0 dim), each head's decay applied pair by pair, then each head's
+    product with its own xdt."""
+    s = product(C[:, 0], B[:, 0].mT)[:, None] * _decay(cum)
+    return product(s, xdt)
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 on the int32 view: round to 10 explicit mantissa
+    bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32x3(a, b):
+    """a @ b as the split-precision TF32 design would take it: a = hi + lo,
+    hi = rna(a), lo = rna(a - hi), the same for b, and hi hi + hi lo + lo hi
+    summed in f32 (each TF32 product exact in f32)."""
+    ah = _tf32_rna(a)
+    al = _tf32_rna(a - ah)
+    bh = _tf32_rna(b)
+    bl = _tf32_rna(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _f64(cum, C, B, xdt):
+    """The function in f64 (the plain version computes in f32)."""
+    s = torch.einsum("...qn,...sn->...qs", C.double(), B.double())
+    return (s * _decay(cum.double())) @ xdt.double()
+
+
+def _tol_ratio(got, want):
+    """max |got - want| / (atol + rtol |want|) at ops.TOLERANCE f32: at most
+    1 where ``torch.testing.assert_close`` passes."""
+    tol = ops.TOLERANCE["ssd_intra_chunk"][torch.float32]
+    return ((got.double() - want.double()).abs()
+            / (tol["atol"] + tol["rtol"] * want.double().abs())).max().item()
+
+
+def test_group_shared_arithmetic_matches_plain_and_pallas():
+    """The kernel's f32 arithmetic at the serving widths (Q 256, N 128, P
+    64), the inputs drawn as on the card with the upper triangle
+    overflowing exp, small G: finite, and within ops.TOLERANCE of the plain
+    version and of the reference's Pallas kernel in interpret mode (cells
+    flattened, C and B copied per head)."""
+    G, H, Q, N, P = 4, 24, 256, 128, 64
+    cum, C, B, xdt = _serving_draw(20, G, H, Q, N, P)
+    assert float((cum[..., 0] - cum[..., -1]).max()) > 88.8   # exp overflows
+    got = _group_shared(cum, C, B, xdt)
+    assert bool(torch.isfinite(got).all())
+    want = ssd_intra_chunk_plain(cum, C, B, xdt)
+    tol = ops.TOLERANCE["ssd_intra_chunk"][torch.float32]
+    torch.testing.assert_close(got, want, **tol)
+    flat = [jnp.asarray(t.reshape(G * H, Q, -1).squeeze(-1).numpy())
+            for t in (cum[..., None], C, B, xdt)]
+    pallas = ref_ops.ssd_intra_chunk(*flat, interpret=True)
+    _close(got.reshape(G * H, Q, P), pallas, **tol)
+
+
+@pytest.mark.parametrize("case", ["reference Q=128", "serving widths"])
+def test_tf32x3_is_f32_accurate_but_leaves_the_tolerance(case, capsys):
+    """The rehearsal of a tensor-core design: both products as three TF32
+    products each (3xTF32).  Against the f64 answer it is within 2x the
+    plain f32 version's own error: as accurate as f32.  But its roundings
+    fall elsewhere than the plain version's, and so do the f64 answer's: at
+    the serving widths both lie outside ops.TOLERANCE (rtol = atol = 1e-5)
+    of the plain version, and of the reference's Pallas kernel at the
+    reference suite's Q = 128.  So the kernel keeps the plain version's f32
+    sums in their order (run with -s for the ratios)."""
+    if case == "serving widths":
+        G, H, Q, N, P = 2, 24, 256, 128, 64
+        cum, C, B, xdt = _serving_draw(21, G, H, Q, N, P)
+        C, B, xdt = C.contiguous(), B.contiguous(), xdt.contiguous()
+    else:   # tests/test_kernels.py:207-217's draw
+        rng = np.random.default_rng(128 + 64)
+        G, H, Q, N, P = 6, 1, 128, 64, 64
+        cum = _t(np.cumsum(-rng.uniform(0.01, 0.1, (G, H, Q)), -1)
+                 .astype(np.float32))
+        C, B = (_t(rng.normal(size=(G, H, Q, N)).astype(np.float32))
+                for _ in range(2))
+        xdt = _t(rng.normal(size=(G, H, Q, P)).astype(np.float32))
+    emu = _group_shared(cum, C, B, xdt, product=_tf32x3)
+    plain = ssd_intra_chunk_plain(cum, C, B, xdt)
+    exact = _f64(cum, C, B, xdt)
+    err_emu = (emu.double() - exact).abs().max().item()
+    err_plain = (plain.double() - exact).abs().max().item()
+    flat = [jnp.asarray(t.reshape(G * H, Q, -1).squeeze(-1).numpy())
+            for t in (cum[..., None], C, B, xdt)]
+    pallas = torch.tensor(np.asarray(
+        ref_ops.ssd_intra_chunk(*flat, interpret=True))).reshape(G, H, Q, P)
+    ratios = {name: _tol_ratio(emu, ref) for name, ref in
+              (("plain", plain), ("pallas", pallas))}
+    with capsys.disabled():
+        print(f"\n3xTF32 at {case}: max |y - y64| {err_emu:.3e} (plain f32 "
+              f"{err_plain:.3e}); max |y - ref| / tol against the plain "
+              f"version {ratios['plain']:.2f}, the Pallas kernel "
+              f"{ratios['pallas']:.2f}; the f64 answer against the plain "
+              f"version {_tol_ratio(exact, plain):.2f}")
+    assert bool(torch.isfinite(emu).all())
+    assert err_emu <= 2 * err_plain
+    assert ratios["plain"] > 1 and ratios["pallas"] > 1
+    if case == "serving widths":
+        assert _tol_ratio(exact, plain) > 1
+
+
+def test_wrapper_takes_group_shared_scores_only_through_stride_0_heads():
+    """The f32 kernel's path, chosen in Python: several heads per CTA where
+    C's and B's head strides are both 0 (the model's layout), one head per
+    CTA for flat cells and for C or B shared alone."""
+    from repro_torch.kernels import ssd_chunk as sc
+    Go, H, Q, N = 3, 24, 256, 16
+    rows = torch.zeros(Go, 1, Q, N)
+    shared = rows.expand(Go, H, Q, N)
+    own = torch.zeros(Go, H, Q, N)
+    assert sc.group_shared(shared, shared)
+    assert not sc.group_shared(shared, own)
+    assert not sc.group_shared(own, shared)
+    assert not sc.group_shared(own, own)
+    assert not sc.group_shared(torch.zeros(Go, Q, N), torch.zeros(Go, Q, N))
+    assert not sc.group_shared(rows, rows)              # one head: no group
+    # the serving prefill's cells fill 132 SMs with whole groups: 24 heads
+    # per CTA, the group's scores computed once per (cell, query tile); the
+    # kernel's 3 consumer warpgroups (2 at P = 128) take a CTA's heads in
+    # turn, a count the library gives (ssd_intra_chunk_f32_warpgroups)
+    n_wg = 3
+    assert sc.heads_per_cta(64, 24, 256, True, 132, n_wg) == 24
+    # too few cells for the card: the heads cut into blocks of whole
+    # rounds of the warpgroups, each CTA still computing its group's
+    # scores once for its block
+    assert sc.heads_per_cta(1, 24, 256, True, 132, n_wg) == 3
+    assert sc.heads_per_cta(8, 24, 256, True, 132, n_wg) == 6
+    assert sc.heads_per_cta(1, 24, 256, True, 132, 2) == 2
+    assert sc.heads_per_cta(6, 5, 100, True, 132, n_wg) == 3
+    assert sc.heads_per_cta(64, 24, 256, False, 132, n_wg) == 1
+    assert sc.heads_per_cta(6, 1, 256, False, 132, n_wg) == 1
+    # the f32 entry takes the heads per CTA, the bf16 entry does not
+    f32, bf16 = (sc.SIGNATURES[f"ssd_intra_chunk_{t}"] for t in ("f32",
+                                                                 "bf16"))
+    assert len(f32) == len(bf16) + 1
+    assert sc.SIGNATURES["ssd_intra_chunk_f32_warpgroups"] == (ctypes.c_int,)
+
+
+def _f32_excess(got, cum, C, B, xdt):
+    """max |got - y64| over the f32 rounding bound of any summation order
+    (chip_smoke.SSD_F32_BOUND): 2^-24 sum_j (sum_n |C_in| |B_jn|) L_ij
+    (N + Q + 8 + |cum_i - cum_j|) |xdt_j|; at most 1 for f32 arithmetic."""
+    Q, N = cum.shape[-1], C.shape[-1]
+    cum = cum.double()
+    L = _decay(cum)
+    Cd, Bd, xd = C.double(), B.double(), xdt.double()
+    y64 = (torch.einsum("...qn,...sn->...qs", Cd, Bd) * L) @ xd
+    W = L * (N + Q + 8 + (cum[..., :, None] - cum[..., None, :]).abs())
+    bound = 2.0 ** -24 * ((torch.einsum("...qn,...sn->...qs", Cd.abs(),
+                                        Bd.abs()) * W) @ xd.abs())
+    return ((got.double() - y64).abs() / bound.clamp_min(1e-300)).max() \
+        .item()
+
+
+@pytest.mark.parametrize("arithmetic", ["plain", "group-shared", "pallas",
+                                        "3xTF32"])
+def test_f32_arithmetics_lie_within_the_f32_bound_of_f64(arithmetic, capsys):
+    """ops.TOLERANCE holds the f32 kernel to its plain version's summation
+    order at the serving widths (test_tf32x3_is_f32_accurate_but_leaves_the_
+    tolerance); the check beside it holds any f32 order to the function in
+    f64 within the rounding bound of _f32_excess.  The plain version, the
+    kernel's group-shared arithmetic, the reference's Pallas kernel in
+    interpret mode and the 3xTF32 split (whose dropped lo * lo term is
+    below 2^-22 of each product) all lie within it, on the inputs drawn as
+    on the card, the upper triangle overflowing exp; a result that skips
+    the first key tile does not."""
+    G, H, Q, N, P = 2, 24, 256, 128, 64
+    cum, C, B, xdt = _serving_draw(22, G, H, Q, N, P)
+    if arithmetic == "plain":
+        got = ssd_intra_chunk_plain(cum, C, B, xdt)
+    elif arithmetic == "group-shared":
+        got = _group_shared(cum, C, B, xdt)
+    elif arithmetic == "3xTF32":
+        got = _group_shared(cum, C.contiguous(), B.contiguous(),
+                            xdt.contiguous(), product=_tf32x3)
+    else:
+        flat = [jnp.asarray(t.reshape(G * H, Q, -1).squeeze(-1).numpy())
+                for t in (cum[..., None], C, B, xdt)]
+        got = torch.tensor(np.asarray(ref_ops.ssd_intra_chunk(
+            *flat, interpret=True))).reshape(G, H, Q, P)
+    assert bool(torch.isfinite(got).all())
+    excess = _f32_excess(got, cum, C, B, xdt)
+    # the first key tile skipped where a query tile reads more than one
+    s = (C[:, 0] @ B[:, 0].mT)[:, None] * _decay(cum)
+    s[..., 64:, :64] = 0.0
+    assert _f32_excess(s @ xdt, cum, C, B, xdt) > 1.0
+    with capsys.disabled():
+        print(f"\n{arithmetic}: max |y - y64| / f32 bound {excess:.4f}")
+    assert excess <= 1.0
 
 
 def test_kernel_view_reproduces_the_chunked_scan():
