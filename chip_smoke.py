@@ -14,8 +14,10 @@ it, and nothing of JAX or of the JAX package.  In order it
    (printing each kernel's registers, shared memory and spills from the
    ptxas report), and beside them copies with a planted fault that the
    checks below must catch: flash_attention with its first KV tile skipped
-   (FLASH_FAULT), weighted_agg_quant with every 16-code vector reading the
-   scale of its first code (QUANT_FAULT), ssd_intra_chunk with the first key
+   (FLASH_FAULT), weighted_agg_quant with every tile reading the scale of
+   its first chunk (QUANT_FAULT) and with the consumer warps reading the
+   ring's place before the one they waited for (QUANT_RING_FAULT),
+   ssd_intra_chunk with the first key
    tile of every query tile that reads more than one skipped (SSD_FAULT) and
    with every head of a CTA given the decay and xdt rows of its first head
    (SSD_HEAD_FAULT);
@@ -23,7 +25,9 @@ it, and nothing of JAX or of the JAX package.  In order it
    paths' shapes (and at edge shapes that take other code), at the
    tolerances of ``repro_torch.kernels.ops`` (weighted_agg_quant: equal),
    flash_attention in bf16 against attention in f32 (BF16_UNIT),
-   weighted_agg_quant's memory high-water mark over one launch, and
+   weighted_agg_quant on each of its paths to the scales (its plan, read
+   from the kernel's host code, names the path) and its memory high-water
+   mark over one launch, and
    ssd_intra_chunk at the serving prefill's shape with the upper triangle
    overflowing exp (no NaN or inf), in bf16 also against the function in
    f32 within its rounding bound (at the serving cell count on three
@@ -50,8 +54,10 @@ it, and nothing of JAX or of the JAX package.  In order it
    trainers; both sharded kernels against their plain versions within
    ``ops.TOLERANCE`` and bit-identical to the unsharded kernels at the
    main path's slab, a 16-row slab and K 64, D 600, a planted fault (the
-   wrapper reducing a shifted slab) caught, and the local launch and the
-   all-reduce timed apart.  The group is destroyed when the phase ends;
+   wrapper reducing a shifted slab) caught, and the wrapper, the local
+   launch and the all-reduce timed apart over repeated windows (median and
+   spread), beside what each piece of the call costs the host.  The group
+   is destroyed when the phase ends;
 7. serves nemotron-4-15b at full width in bf16 with
    ``attn_impl="flash"`` through ``repro_torch.launch.serve.serve``: a
    batch of 4 prompts of 4,096 tokens, then 32 decode steps; checks
@@ -68,7 +74,8 @@ it, and nothing of JAX or of the JAX package.  In order it
    decode steps against the full forward in f32, the reduced config on the
    card against the CPU; prefill and decode times, busy shares, memory;
 8. times each kernel beside its bound, its plain version and the one
-   PyTorch call that computes the same function (for weighted_agg_quant,
+   PyTorch call that computes the same function (weighted_agg_quant from
+   device memory and, beside it, from L2; for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
    composition of calls, ssd_intra_chunk's computing the group's scores
    once for its heads as the kernel does; for flash_attention,
@@ -84,6 +91,7 @@ Any failure raises and the script exits nonzero.  The last line,
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -258,22 +266,39 @@ DECODE_TOL = dict(rtol=1e-4, atol=1e-4)
 # departure)
 WIRE_ROUNDS = {"int8": ROUNDS, "int8-topk": 2, "bf16": 2}
 QUANT_CHUNK = 256       # CompressionSpec's default chunk
-# weighted_agg_quant against its plain version, both (K, D, chunk, levels)
-# of codes from quantize_chunked: the int8 wire's shape, and edge shapes
-# that take other code
-QUANT_MAIN = (N_CLIENTS, None, QUANT_CHUNK, 127)     # D: the CNN's
+# weighted_agg_quant against its plain version, both (K, D, chunk, levels,
+# wider) of codes from quantize_chunked, the payload's row stride made
+# `wider` bytes wider: the int8 wire's shape, and edge shapes that take
+# other code: several TMA row boxes a tile, both paths to the scales
+# (csrc/weighted_agg_quant.cu's header says which shapes take which)
+QUANT_MAIN = (N_CLIENTS, None, QUANT_CHUNK, 127, 0)  # D: the CNN's
 QUANT_EDGES = [
-    (1, 4099, 256, 127),            # one client; D not a chunk multiple
-    (70, 4099, 256, 127),           # K > 64, the reference's K-tiled case
-    (N_CLIENTS, 100_000, 64, 127),  # another chunk that 16 divides
-    (N_CLIENTS, None, 100, 127),    # vectors straddle chunks; rows padded
-    (8, 1000, 1, 127),              # one scale per code
-    (N_CLIENTS, 4099, 256, 7),      # codes of levels=7
+    (1, 4099, 256, 127, 0),            # one client; D not a chunk multiple
+    (70, 4099, 256, 127, 0),           # K > 64, the reference's K-tiled case
+    (N_CLIENTS, 100_000, 64, 127, 0),  # another chunk that 16 divides
+    (N_CLIENTS, None, 100, 127, 0),    # warps straddle chunks; scale
+                                       # rows of 18,468 bytes; rows padded
+    (8, 1000, 1, 127, 0),              # one scale per code
+    (N_CLIENTS, 4099, 256, 7, 0),      # codes of levels=7
+    (256, 65_536, 256, 127, 0),        # K 256: several boxes a tile
+    (257, 100_000, 256, 127, 0),       # one row past 256
+    (300, None, 256, 127, 0),          # five boxes at the wire's width
+    (4, 16, 4, 127, 0),                # D below one tile; per code
+    (N_CLIENTS, 100_000, 50, 127, 0),  # per code, few chunks a tile
+    (N_CLIENTS, 10_000, 256, 127, 0),  # fewer tiles than SMs
+    (N_CLIENTS, 10_000, 256, 127, 4096),  # rows wider than Dp
 ]
-# the planted fault: every 16-code vector reads the scale of its first
-# code, which is right only where a vector lies inside one chunk
-QUANT_FAULT = ("static_cast<int>((col + j < D ? col + j : D - 1) / chunk "
-               "- g0)", "0")
+# the planted faults: every tile reads the scale of its first chunk, right
+# only where a tile lies inside one chunk (caught at chunk 100); and the
+# consumer warps read the ring's place before the one they waited for (the
+# previous group's where a group has one place; caught at K > 256 and at
+# the wire's shape)
+QUANT_FAULT = ("static_cast<int>((col + j < a.D ? col + j : a.D - 1) / "
+               "a.chunk -", "static_cast<int>(c0 -")
+QUANT_RING_FAULT = (
+    "ring + static_cast<size_t>(p) * a.place_bytes;",
+    "ring + static_cast<size_t>((p + GROUPS * a.stages - 1) % (GROUPS * "
+    "a.stages)) * a.place_bytes;")
 
 
 # the sharded kernels against their plain versions, (K, D) and (K, D,
@@ -283,6 +308,11 @@ QUANT_FAULT = ("static_cast<int>((col + j < D ? col + j : D - 1) / chunk "
 SHARDED_SLABS = [(N_CLIENTS, None), (16, None), (64, 600)]
 SHARDED_QUANT_SLABS = [(N_CLIENTS, None, QUANT_CHUNK), (16, None, QUANT_CHUNK),
                        (64, 600, 100)]
+# the sharded wrappers, their local launches and all-reduces are each
+# timed over this many windows, taken in turns, each after the card spun
+# this many cycles (~0.1 s) while the host queued its calls
+SHARDED_WINDOWS = 7
+SHARDED_SPIN = 200_000_000
 # the caching allocator's pool is grown by this many bytes before the
 # sharded kernels are timed, so that back-to-back calls take their outputs
 # from it and no cudaMalloc falls inside the timed window
@@ -493,45 +523,73 @@ def check_flash_attention(dev, planted) -> float:
     return worst
 
 
-def _quantized(dev, gen, K, D, chunk, levels):
+def quantized(dev, gen, K, D, chunk, levels, wider: int = 0):
     """coeffs (some 0) and quantize_chunked's payload and scales of seeded
-    normal deltas (some rows all zero)."""
+    normal deltas (some rows all zero); the payload's rows `wider` bytes
+    further apart than quantize_chunked lays them."""
     from repro_torch.core.compression import quantize_chunked
     c = torch.rand(K, device=dev, generator=gen)
     c[::7] = 0.0                              # clients with no work
     d = torch.randn(K, D, device=dev, generator=gen) * 1e-2
     d[1::5] = 0.0                             # all-zero rows: scales 0
     payload, scales = quantize_chunked(d, chunk=chunk, levels=levels)
+    if wider:
+        rows = torch.zeros(K, payload.stride(0) + wider, dtype=torch.int8,
+                           device=dev)
+        rows[:, :payload.shape[1]] = payload
+        payload = rows[:, :payload.shape[1]]
     return c, payload, scales
 
 
-def check_weighted_agg_quant(dev, D: int, planted) -> float:
+def check_weighted_agg_quant(dev, D: int, planted, planted_ring) -> float:
     """The kernel equals its plain version at the int8 wire's shape and
-    at the edge shapes; the planted fault must differ at chunk 100."""
+    at the edge shapes, which between them take every path to the scales
+    and several row boxes a tile; the planted faults must differ: the
+    tile's first chunk at chunk 100, the previous ring place at K > 256 and
+    at the wire's shape."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import weighted_agg as agg
     gen = torch.Generator(device=dev).manual_seed(6)
-    worst = 0.0
-    for K, n, chunk, levels in [QUANT_MAIN] + QUANT_EDGES:
+    worst, paths, boxes = 0.0, set(), set()
+    for K, n, chunk, levels, wider in [QUANT_MAIN] + QUANT_EDGES:
         n = n or D
-        c, payload, scales = _quantized(dev, gen, K, n, chunk, levels)
+        c, payload, scales = quantized(dev, gen, K, n, chunk, levels, wider)
+        plan = agg.quant_plan(payload, scales, chunk)
+        if plan["boxes"] != -(-K // plan["rows"]):
+            raise RuntimeError(f"weighted_agg_quant's plan {plan} does not "
+                               f"cover K={K} rows")
+        paths.add(plan["path"])
+        boxes.add(plan["boxes"])
         got = ops.weighted_agg_quant(c, payload, scales, chunk=chunk)
         want = agg.weighted_agg_quant_plain(c, payload, scales, chunk)
         bad = agg.launch_quant(c, payload, scales, chunk, lib=planted)
+        bad_ring = agg.launch_quant(c, payload, scales, chunk,
+                                    lib=planted_ring)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         log(f"  weighted_agg_quant K={K} D={n} chunk={chunk} "
             f"levels={levels}: Dp {payload.shape[1]}, payload row stride "
-            f"{payload.stride(0)}, max_abs_err {err:.3e} against the plain "
-            f"version (must be 0); planted fault {max_abs_err(bad, want):.3e}")
+            f"{payload.stride(0)}, plan {plan}, max_abs_err {err:.3e} "
+            f"against the plain version (must be 0); planted faults: first "
+            f"chunk {max_abs_err(bad, want):.3e}, previous place "
+            f"{max_abs_err(bad_ring, want):.3e}")
         if not torch.equal(got, want):
             raise RuntimeError("weighted_agg_quant differs from its plain "
                                "version")
         if chunk == 100 and torch.equal(bad, want):
             raise RuntimeError("the check does not see the planted fault "
                                "at chunk 100")
+        if (K > 256 or n == D and K == N_CLIENTS and chunk == QUANT_CHUNK) \
+                and torch.equal(bad_ring, want):
+            raise RuntimeError(f"the check does not see the ring's planted "
+                               f"fault at K={K} D={n}")
         worst = max(worst, err)
-        del c, payload, scales, got, want, bad
+        del c, payload, scales, got, want, bad, bad_ring
+    log(f"  weighted_agg_quant paths reached: {sorted(paths)}, boxes a "
+        f"tile: {sorted(boxes)}")
+    if paths != {"staged", "per-code"} or max(boxes) < 2:
+        raise RuntimeError("the edge shapes do not reach every path of the "
+                           "weighted_agg_quant kernel")
     return worst
 
 
@@ -541,7 +599,7 @@ def check_quant_memory(dev, D: int) -> None:
     (K, Dp) deltas never exist in device memory."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(7)
-    c, payload, scales = _quantized(dev, gen, N_CLIENTS, D, QUANT_CHUNK, 127)
+    c, payload, scales = quantized(dev, gen, N_CLIENTS, D, QUANT_CHUNK, 127)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
@@ -1250,7 +1308,7 @@ def check_sharded_kernels(dev, D: int, fs) -> dict:
             unsharded, bad, tol)
     for K, n, chunk in SHARDED_QUANT_SLABS:
         n = n or D
-        c, payload, scales = _quantized(dev, gen, K, n, chunk, 127)
+        c, payload, scales = quantized(dev, gen, K, n, chunk, 127)
         got = ops.weighted_agg_quant_sharded(c, payload, scales, chunk=chunk,
                                              sharding=fs)
         want = agg.weighted_agg_quant_sharded_plain(c, payload, scales, chunk,
@@ -1721,17 +1779,17 @@ def ssm_serve_path(dev, planted):
 
 
 # -- 8. timing ----------------------------------------------------------------
-def device_ms(fn, n: int) -> float:
+def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
-    back-to-back calls.  The card first spins for a few tens of ms, so the
-    host queues the calls ahead of it and no call waits for the host as
-    far as the queue allows."""
+    back-to-back calls.  The card first spins for `spin` cycles (a few tens
+    of ms by default), so the host queues the calls ahead of it and no call
+    waits for the host as far as the queue allows."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(n):
         fn()
@@ -1865,85 +1923,119 @@ def sdpa_backends(sdpa, q, k, v) -> None:
 
 def time_weighted_agg_quant(dev, D: int):
     """The int8 wire's reduction: coeffs (K,), payload (K, Dp) int8 and
-    scales (K, Dp / chunk) f32 from quantize_chunked."""
+    scales (K, Dp / chunk) f32 from quantize_chunked, read from device
+    memory as the byte bound counts them (``rotation``), and beside that
+    one input set launched again and again, which the 50 MB L2 holds."""
     from repro_torch.kernels import weighted_agg as agg
     gen = torch.Generator(device=dev).manual_seed(8)
     K, chunk = N_CLIENTS, QUANT_CHUNK
-    c, payload, scales = _quantized(dev, gen, K, D, chunk, 127)
+    sets = rotation(lambda: quantized(dev, gen, K, D, chunk, 127), K * D)
+    c, payload, scales = next(sets)
     Dp, n_chunks = payload.shape[1], scales.shape[1]
-    kernel = device_ms(lambda: agg.launch_quant(c, payload, scales, chunk),
-                       100)
+    kernel = device_ms(lambda: agg.launch_quant(*next(sets), chunk), 100)
+    l2 = device_ms(lambda: agg.launch_quant(c, payload, scales, chunk), 100)
     plain = device_ms(lambda: agg.weighted_agg_quant_plain(
         c, payload, scales, chunk), 10)
-    composition = device_ms(lambda: torch.mv(
-        (payload.float().view(K, -1, chunk) * scales[..., None])
-        .view(K, -1).t(), c), 20)
+    composition = device_ms(lambda: dequantized_mv(*next(sets), chunk), 20)
     # codes, scales and coeffs read once, the output written once; a
     # multiply by the scale, one by the coefficient and an add per code
     n_bytes = K * Dp + 4 * (K * n_chunks + K + Dp)
     bound, by = bound_ms(n_bytes, 3 * K * Dp)
     log(f"  weighted_agg_quant, coeffs ({K},), payload ({K}, {Dp}) int8, "
-        f"scales ({K}, {n_chunks}) f32: kernel {kernel * 1e3:.1f} us "
-        f"({n_bytes / kernel / 1e9:.3f} TB/s), bound {bound * 1e3:.1f} us "
-        f"by {by}, plain {plain * 1e3:.1f} us; no single PyTorch call "
-        f"computes it: the composition torch.mv((payload.float().view(K, -1, "
-        f"chunk) * scales[..., None]).view(K, -1).t(), coeffs) "
-        f"{composition * 1e3:.1f} us")
-    return dict(ms=kernel, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=None, composition_ms=composition)
+        f"scales ({K}, {n_chunks}) f32, plan "
+        f"{agg.quant_plan(payload, scales, chunk)}: kernel from device "
+        f"memory {kernel * 1e3:.1f} us ({n_bytes / kernel / 1e9:.3f} TB/s, "
+        f"{bound / kernel:.3f} of the bound), from L2 {l2 * 1e3:.1f} us, "
+        f"bound {bound * 1e3:.1f} us by {by}, plain {plain * 1e3:.1f} us; no "
+        f"single PyTorch call computes it: the composition "
+        f"torch.mv((payload.float().view(K, -1, chunk) * scales[..., None])"
+        f".view(K, -1).t(), coeffs) {composition * 1e3:.1f} us")
+    return dict(ms=kernel, l2_ms=l2, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=None, composition_ms=composition)
 
 
 def time_sharded_kernels(dev, D: int, fs) -> dict:
     """Both sharded kernels at the main path's 62-row slab and a 16-row
-    slab: the local launch and the all-reduce of its (D,) f32 partial,
-    each alone, the wrapper's whole call, its plain version, and the
-    composition of PyTorch calls that computes the same (torch.mv, or
-    time_weighted_agg_quant's dequantize-and-mv, then the all-reduce), on
-    inputs that come from device memory (``rotation``).  The bound is the
-    slab's bytes over the card's memory rate (on one rank nothing crosses
-    a link).  Returns {name: {rows: timings}}."""
+    slab: on the card's timeline, the wrapper (``ops``), its local launch
+    and the all-reduce of its (D,) f32 partial, each alone, over
+    SHARDED_WINDOWS windows (median, least and most), its plain version,
+    and the composition of PyTorch calls that computes the same (torch.mv,
+    or time_weighted_agg_quant's dequantize-and-mv, then the all-reduce),
+    on inputs that come from device memory (``rotation``); and on the
+    host's clock, what each piece of the wrapper's call costs to enqueue
+    (``host_us``).  The bound is the slab's bytes over the card's memory
+    rate (on one rank nothing crosses a link).  Returns {name: {rows:
+    timings}}."""
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import weighted_agg as agg
     gen = torch.Generator(device=dev).manual_seed(12)
     out = {"weighted_agg_sharded": {}, "weighted_agg_quant_sharded": {}}
+    lib = build.load("weighted_agg", agg._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
     for K, n in SHARDED_SLABS[:2]:
         n = n or D
         sets = rotation(lambda: (torch.rand(K, device=dev, generator=gen),
                                  agg.padded(torch.randn(K, n, device=dev,
                                                         generator=gen))),
                         4 * K * n)
-        partial = agg.launch(*next(sets))
+        c, d = next(sets)
+        partial = agg.launch(c, d)
         grow_pool(dev)
-        r = dict(
-            ms=device_ms(lambda: fs.all_reduce(agg.launch(*next(sets))),
-                         100),
-            local_ms=device_ms(lambda: agg.launch(*next(sets)), 100),
-            all_reduce_ms=device_ms(lambda: fs.all_reduce(partial), 100),
+        r = windows(
+            ms=lambda: ops.weighted_agg_sharded(*next(sets), sharding=fs),
+            local=lambda: agg.launch(*next(sets)),
+            all_reduce=lambda: fs.all_reduce(partial))
+        r.update(
             plain_ms=device_ms(lambda: agg.weighted_agg_sharded_plain(
                 *next(sets), fs), 10),
             composition_ms=device_ms(lambda: fs.all_reduce(
-                mv(*next(sets))), 100))
+                mv(*next(sets))), 100),
+            host_us=dict(
+                kernel_c_call=host_us(lambda: lib.weighted_agg_f32(
+                    c.data_ptr(), d.data_ptr(), d.stride(0),
+                    partial.data_ptr(), K, n, stream)),
+                launch=host_us(lambda: agg.launch(c, d)),
+                all_reduce=host_us(lambda: fs.all_reduce(partial)),
+                wrapper=host_us(lambda: ops.weighted_agg_sharded(
+                    c, d, sharding=fs))))
         r["bound_ms"], r["bound_by"] = bound_ms(4 * (K * n + K + n),
                                                 2 * K * n)
         out["weighted_agg_sharded"][K] = r
         _log_sharded("weighted_agg_sharded", f"coeffs ({K},) f32 and deltas "
                      f"({K}, {n}) f32", r, "torch.mv(deltas.t(), coeffs)")
+    qlib = build.load("weighted_agg_quant", agg.QUANT_SIGNATURES)
     for K, n, chunk in SHARDED_QUANT_SLABS[:2]:
         n = n or D
-        sets = rotation(lambda: _quantized(dev, gen, K, n, chunk, 127), K * n)
+        sets = rotation(lambda: quantized(dev, gen, K, n, chunk, 127), K * n)
         c, payload, scales = next(sets)
         Dp, n_chunks = payload.shape[1], scales.shape[1]
         partial = agg.launch_quant(c, payload, scales, chunk)
+        plan = (ctypes.c_int * 6)()
         grow_pool(dev)
-        r = dict(
-            ms=device_ms(lambda: fs.all_reduce(agg.launch_quant(
-                *next(sets), chunk)), 100),
-            local_ms=device_ms(lambda: agg.launch_quant(
-                *next(sets), chunk), 100),
-            all_reduce_ms=device_ms(lambda: fs.all_reduce(partial), 100),
+        r = windows(
+            ms=lambda: ops.weighted_agg_quant_sharded(
+                *next(sets), chunk=chunk, sharding=fs),
+            local=lambda: agg.launch_quant(*next(sets), chunk),
+            all_reduce=lambda: fs.all_reduce(partial))
+        r.update(
             plain_ms=device_ms(lambda: agg.weighted_agg_quant_sharded_plain(
                 *next(sets), chunk, fs), 10),
             composition_ms=device_ms(lambda: fs.all_reduce(dequantized_mv(
-                *next(sets), chunk)), 20))
+                *next(sets), chunk)), 20),
+            host_us=dict(
+                kernel_c_call=host_us(lambda: qlib.weighted_agg_quant(
+                    c.data_ptr(), payload.data_ptr(), payload.stride(0),
+                    scales.data_ptr(), chunk, partial.data_ptr(), K, Dp,
+                    stream)),
+                plan_and_tensor_maps=host_us(
+                    lambda: qlib.weighted_agg_quant_plan(
+                        payload.data_ptr(), payload.stride(0),
+                        scales.data_ptr(), chunk, K, Dp, plan)),
+                launch=host_us(lambda: agg.launch_quant(c, payload, scales,
+                                                        chunk)),
+                all_reduce=host_us(lambda: fs.all_reduce(partial)),
+                wrapper=host_us(lambda: ops.weighted_agg_quant_sharded(
+                    c, payload, scales, chunk=chunk, sharding=fs))))
         r["bound_ms"], r["bound_by"] = bound_ms(
             K * Dp + 4 * (K * n_chunks + K + Dp), 3 * K * Dp)
         out["weighted_agg_quant_sharded"][K] = r
@@ -1951,6 +2043,40 @@ def time_sharded_kernels(dev, D: int, fs) -> dict:
                      f"({K}, {Dp}) int8, scales ({K}, {n_chunks}) f32", r,
                      "the dequantize-and-mv composition")
     return out
+
+
+def windows(**fns) -> dict:
+    """device_ms of each fn (100 calls a window) over SHARDED_WINDOWS
+    windows taken in turns: <name>_ms the median window, <name>_min_ms and
+    <name>_max_ms the least and the most ("ms" itself for the name ms).
+    Each window's head start is SHARDED_SPIN cycles: the wrapper's host
+    path (its all-reduce's enqueue above all) takes up to hundreds of us a
+    call, and a window whose queue runs dry times the host, not the card."""
+    times = {name: [] for name in fns}
+    for _ in range(SHARDED_WINDOWS):
+        for name, fn in fns.items():
+            times[name].append(device_ms(fn, 100, spin=SHARDED_SPIN))
+    out = {}
+    for name, t in times.items():
+        t = sorted(t)
+        key = "" if name == "ms" else f"{name}_"
+        out[f"{key}ms"] = t[len(t) // 2]
+        out[f"{key}min_ms"], out[f"{key}max_ms"] = t[0], t[-1]
+    return out
+
+
+def host_us(fn, n: int = 200) -> float:
+    """The host's time per call of fn, in us, from an idle card: what a
+    call costs to enqueue (the window holds no synchronise)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
 
 
 def rotation(draw, n_bytes: float):
@@ -1986,13 +2112,17 @@ def sharded_row(timings: dict) -> dict:
 
 
 def _log_sharded(name: str, shape: str, r: dict, composition: str) -> None:
-    log(f"  {name}, {shape}, one NCCL rank: wrapper "
-        f"{r['ms'] * 1e3:.1f} us = local launch {r['local_ms'] * 1e3:.1f} "
-        f"us + all_reduce {r['all_reduce_ms'] * 1e3:.1f} us (each timed "
-        f"alone), bound {r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}, "
-        f"plain {r['plain_ms'] * 1e3:.1f} us; no single PyTorch call "
-        f"computes it: {composition} + all_reduce "
-        f"{r['composition_ms'] * 1e3:.1f} us")
+    def spread(key):
+        return (f"{r[key + 'ms'] * 1e3:.1f} us [{r[key + 'min_ms'] * 1e3:.1f}"
+                f", {r[key + 'max_ms'] * 1e3:.1f}]")
+    host = ", ".join(f"{k} {v:.1f}" for k, v in r["host_us"].items())
+    log(f"  {name}, {shape}, one NCCL rank, on the card (median [least, "
+        f"most] of {SHARDED_WINDOWS} windows): wrapper {spread('')} = local "
+        f"launch {spread('local_')} + all_reduce {spread('all_reduce_')} "
+        f"(each timed alone), bound {r['bound_ms'] * 1e3:.1f} us by "
+        f"{r['bound_by']}, plain {r['plain_ms'] * 1e3:.1f} us; no single "
+        f"PyTorch call computes it: {composition} + all_reduce "
+        f"{r['composition_ms'] * 1e3:.1f} us; host us per call: {host}")
 
 
 def time_ssd_intra_chunk(dev):
@@ -2103,6 +2233,8 @@ def main() -> None:
     flash_job = start_planted_fault("flash_attention", FLASH_FAULT,
                                     sites=2)
     quant_job = start_planted_fault("weighted_agg_quant", QUANT_FAULT)
+    ring_job = start_planted_fault("weighted_agg_quant", QUANT_RING_FAULT,
+                                   tag="planted_ring_fault")
     # the loops over a head's key tiles: the f32 producer's and consumers',
     # and the bf16 body's
     ssd_job = start_planted_fault("ssd_intra_chunk", SSD_FAULT, sites=3)
@@ -2112,6 +2244,8 @@ def main() -> None:
     planted = finish_planted_fault(*flash_job, flash_attention.SIGNATURES)
     planted_quant = finish_planted_fault(*quant_job,
                                          weighted_agg.QUANT_SIGNATURES)
+    planted_ring = finish_planted_fault(*ring_job,
+                                        weighted_agg.QUANT_SIGNATURES)
     planted_ssd = finish_planted_fault(*ssd_job, ssd_chunk.SIGNATURES)
     planted_ssd_head = finish_planted_fault(*ssd_head_job,
                                             ssd_chunk.SIGNATURES)
@@ -2130,7 +2264,7 @@ def main() -> None:
     agg_err = check_weighted_agg(dev, D)
     sgd_err = check_masked_sgd(dev, leaves)
     flash_err = check_flash_attention(dev, planted)
-    quant_err = check_weighted_agg_quant(dev, D, planted_quant)
+    quant_err = check_weighted_agg_quant(dev, D, planted_quant, planted_ring)
     check_quant_memory(dev, D)
     ssd_err = check_ssd_intra_chunk(dev, planted_ssd, planted_ssd_head)
 

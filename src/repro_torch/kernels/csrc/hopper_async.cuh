@@ -1,7 +1,8 @@
 // Hopper's asynchronous copies and the mbarriers that count them, shared by
 // the kernels that stage their tiles by TMA (flash_attention.cu,
-// ssd_intra_chunk.cu).  build.py compiles every source with this directory on
-// the include path and hashes this header into each library's name.
+// ssd_intra_chunk.cu, weighted_agg_quant.cu).  build.py compiles every
+// source with this directory on the include path and hashes this header
+// into each library's name.
 //
 // cuTensorMapEncodeTiled, a CUDA driver API function, is taken through
 // cudaGetDriverEntryPoint, so no library links libcuda.
@@ -82,6 +83,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// The same for a box of a 2-D map.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
 

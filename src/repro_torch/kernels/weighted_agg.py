@@ -32,10 +32,14 @@ _SIGNATURES = {fn: (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_void_p)
                for fn in _FN.values()}
-QUANT_SIGNATURES = {"weighted_agg_quant": (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-    ctypes.c_void_p)}
+QUANT_SIGNATURES = {
+    "weighted_agg_quant": (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p),
+    "weighted_agg_quant_plan": (
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p)}
 # the kernels read each row in vectors of this many bytes
 VECTOR_BYTES = 16
 
@@ -198,6 +202,29 @@ def launch_quant(coeffs: torch.Tensor, payload: torch.Tensor,
         raise RuntimeError(f"weighted_agg_quant launch failed with CUDA "
                            f"error {err}")
     return out
+
+
+def quant_plan(payload: torch.Tensor, scales: torch.Tensor, chunk: int,
+               lib=None) -> dict:
+    """What a launch of the weighted_agg_quant kernel on these CUDA tensors
+    would do, from the kernel's own host code: its path to the scales
+    ("staged" beside the codes in shared memory, or "per-code" from device
+    memory), the scales it stages per row, rows per TMA box, boxes per
+    tile, ring places per group of consumer warps, CTAs and bytes of shared
+    memory.  Raises where the kernel would refuse the layout."""
+    K, Dp = payload.shape
+    plan = (ctypes.c_int * 6)()
+    lib = lib or build.load("weighted_agg_quant", QUANT_SIGNATURES)
+    with torch.cuda.device(payload.device):
+        err = lib.weighted_agg_quant_plan(
+            payload.data_ptr(), payload.stride(0), scales.data_ptr(), chunk,
+            K, Dp, plan)
+    if err:
+        raise RuntimeError(f"weighted_agg_quant refuses this layout: CUDA "
+                           f"error {err}")
+    return dict(path="staged" if plan[0] else "per-code", staged=plan[0],
+                rows=plan[1], boxes=plan[2], stages=plan[3], ctas=plan[4],
+                smem=plan[5])
 
 
 def weighted_agg_sharded_plain(coeffs: torch.Tensor, deltas: torch.Tensor,

@@ -184,16 +184,38 @@ def _quantized(card, K, D, chunk, levels, seed):
     return (c,) + quantize_chunked(d, chunk=chunk, levels=levels)
 
 
-@pytest.mark.parametrize("K,D,chunk,levels", [
-    (62, 461630, 256, 127), (1, 4099, 256, 127), (70, 4099, 256, 127),
-    (62, 100000, 64, 127), (62, 461630, 100, 127), (8, 1000, 1, 127),
-    (62, 4099, 256, 7), (3, 16, 16, 127)])
-def test_weighted_agg_quant_kernel_equals_plain(card, K, D, chunk, levels):
+# (K, D, chunk, levels, bytes added to the payload's row stride, the path
+# the kernel takes to its scales: csrc/weighted_agg_quant.cu's header says
+# which shapes take which)
+@pytest.mark.parametrize("K,D,chunk,levels,wider,path", [
+    (62, 461630, 256, 127, 0, "staged"), (1, 4099, 256, 127, 0, "staged"),
+    (70, 4099, 256, 127, 0, "staged"), (62, 100000, 64, 127, 0, "staged"),
+    (62, 461630, 100, 127, 0, "staged"), (8, 1000, 1, 127, 0, "per-code"),
+    (62, 4099, 256, 7, 0, "staged"), (3, 16, 16, 127, 0, "staged"),
+    (256, 65536, 256, 127, 0, "staged"), (257, 100000, 256, 127, 0, "staged"),
+    (300, 461630, 256, 127, 0, "staged"), (4, 16, 4, 127, 0, "per-code"),
+    (62, 10000, 256, 127, 0, "staged"), (62, 10000, 256, 127, 4096, "staged"),
+    (5, 1001, 1, 127, 0, "per-code"), (8, 1000, 50, 127, 0, "per-code"),
+    (62, 100000, 50, 127, 0, "per-code")])
+def test_weighted_agg_quant_kernel_equals_plain(card, K, D, chunk, levels,
+                                                wider, path):
     """The kernel makes the plain version's roundings in its order: equal,
-    at the int8 wire's shape and at edge shapes (K > 64, chunks 16 does not
-    divide, one scale per code, rows padded to 16 bytes, levels 7)."""
-    from repro_torch.kernels.weighted_agg import weighted_agg_quant_plain
+    at the int8 wire's shape and at edge shapes (K > 64 in several row
+    boxes, chunks 16 does not divide, one scale per code, rows padded to 16
+    bytes or wider still, levels 7, D below one tile, fewer tiles than SMs,
+    rows of scales that are not whole 16-byte vectors), each on the path
+    named."""
+    from repro_torch.kernels.weighted_agg import (quant_plan,
+                                                  weighted_agg_quant_plain)
     c, payload, scales = _quantized(card, K, D, chunk, levels, K + D + chunk)
+    if wider:
+        rows = torch.zeros(K, payload.stride(0) + wider, dtype=torch.int8,
+                           device=card)
+        rows[:, :payload.shape[1]] = payload
+        payload = rows[:, :payload.shape[1]]
+    plan = quant_plan(payload, scales, chunk)
+    assert plan["path"] == path
+    assert plan["boxes"] == -(-K // plan["rows"])
     before = ops.launches["weighted_agg_quant"]
     got = ops.weighted_agg_quant(c, payload, scales, chunk=chunk)
     torch.cuda.synchronize()

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports jax or the reference package, and its entry points refuse to run
-without a CUDA device unless the CPU is asked for."""
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
+or ``tools/weighted_agg_quant_turns.py``) imports jax or the reference
+package, and its entry points refuse to run without a CUDA device unless
+the CPU is asked for."""
 import os
 import pathlib
 import re
@@ -43,7 +44,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "tools" / "weighted_agg_quant_turns.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_reference(path):
     assert not FORBIDDEN.findall(path.read_text()), path
