@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
-round, the compressed federated round, the client-sharded round, LM
-serving and Mamba2 SSD serving.
+round, the compressed federated round, the client-sharded round, the
+paper's experiments with the client-sequential round, LM serving and
+Mamba2 SSD serving.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,9 @@ it, and nothing of JAX or of the JAX package.  In order it
    with every head of a CTA given the decay and xdt rows of its first head
    (SSD_HEAD_FAULT);
 3. holds each kernel against its plain PyTorch version on the card at the
-   paths' shapes (and at edge shapes that take other code), at the
+   paths' shapes (and at edge shapes that take other code; weighted_agg
+   also at the paper tables' (K, D), masked_sgd also at one row per leaf
+   of each paper model, the client-sequential round's), at the
    tolerances of ``repro_torch.kernels.ops`` (weighted_agg_quant: equal),
    flash_attention in bf16 against attention in f32 (BF16_UNIT),
    weighted_agg_quant on each of its paths to the scales (its plan, read
@@ -58,7 +61,27 @@ it, and nothing of JAX or of the JAX package.  In order it
    launch and the all-reduce timed apart over repeated windows (median and
    spread), beside what each piece of the call costs the host.  The group
    is destroyed when the phase ends;
-7. serves nemotron-4-15b at full width in bf16 with
+7. runs the paper's experiments and the client-sequential round
+   (``FederatedTrainer(mode="client_sequential")``): in the reference's
+   own scenario of its int8 modes' invariant (logreg, 4 clients, E 3, 8
+   rounds, plan mode), the int8 sequential trainer's params and round
+   records bit-identical to the int8 flat parallel trainer's; at full
+   width (the EMNIST CNN, 62 slots, the main path's rounds, f32 and int8,
+   each round from the parallel run's params), C x E x 8 one-row
+   masked_sgd launches a round and no reduction kernel, round records
+   equal to the parallel run's, params within PARAM_TOL plus one code step
+   per client of it (how many elements differ, and whether one client's
+   local steps alone equal its row of the 62-client steps), the memory
+   high-water mark of a warm round below C D 4 bytes, warm rounds/s in
+   turns with the parallel trainers; ``benchmarks.bound_check`` in both
+   modes and Tables 3 (synthetic and images), 4 and 5 at the reference's
+   defaults from the reference's initial params, after the tables' data
+   are shown to be the reference's, each held to ``reference_rows.json``
+   by the rules of ``repro_torch.benchmarks.reference`` and printed as JSON
+   lines with their seconds; then one row of each table teacher-forced
+   against the port on the CPU (records equal, params within PARAM_TOL
+   after every round);
+8. serves nemotron-4-15b at full width in bf16 with
    ``attn_impl="flash"`` through ``repro_torch.launch.serve.serve``: a
    batch of 4 prompts of 4,096 tokens, then 32 decode steps; checks
    flash_attention's launches (one per layer per prefill, none per decode
@@ -73,7 +96,7 @@ it, and nothing of JAX or of the JAX package.  In order it
    against the model with the intra-chunk term in f64 (LOGITS_FACTOR),
    decode steps against the full forward in f32, the reduced config on the
    card against the CPU; prefill and decode times, busy shares, memory;
-8. times each kernel beside its bound, its plain version and the one
+9. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (weighted_agg_quant from
    device memory and, beside it, from L2; for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
@@ -318,6 +341,26 @@ SHARDED_SPIN = 200_000_000
 # from it and no cudaMalloc falls inside the timed window
 POOL_BYTES = 2 ** 30
 
+# the paper's experiments: weighted_agg at the tables' (K, D) (Table 3 on
+# SYNTHETIC and on images with 24 clients, Tables 4 and 5 with 10)
+TABLE_AGG = [(24, 610), (24, 159_010), (10, 610)]
+# the reference's own scenario of int8 parallel == int8 sequential
+# (tests/test_compression.py:157-190): logreg, 4 clients of
+# synthetic_federation(0.5, 0.5, 4, seed=0), E 3, B 10, scheme C, eta0 0.5,
+# 8 rounds, eval every 4
+SEQ_SCENARIO = dict(n_clients=4, local_epochs=3, batch_size=10, eta0=0.5,
+                    rounds=8, eval_every=4)
+SEQ_WARM_ROUNDS = 3     # the sequential round's warm windows, in turns
+# one teacher-forced row per table, card against the port on the CPU: (label,
+# table, trainer arguments, rounds, eval_every)
+TEACHER_FORCED = (
+    [(f"table3 synthetic niid |T|=8 scheme {s}", "table3",
+      ("synthetic", True, 8, s), 60, 5) for s in "ABC"]
+    + [(f"table4 tau0=10 fast_reboot={f}", "table4", (10, f), 70, 1)
+       for f in (True, False)]
+    + [(f"table5 (1.0, 1.0) tau0=10 {p}", "table5", (1.0, 1.0, 10, p), 70, 1)
+       for p in ("include", "exclude")])
+
 
 def log(*args) -> None:
     print(*args, flush=True)
@@ -379,12 +422,14 @@ def check_weighted_agg(dev, D: int) -> float:
     # the main path's shape in f32 (D = 2 mod 4: the last vector of a row
     # is half pad) and bf16 (D = 6 mod 8); rows of whole vectors with no
     # pad, passed as a plain contiguous tensor; a tail of 3 columns; and
-    # K > 64 (the reference's K-tiled layout)
+    # K > 64 (the reference's K-tiled layout); then the paper tables'
+    # rounds
     for K, n, dtype in [(N_CLIENTS, D, torch.float32),
                         (N_CLIENTS, D, torch.bfloat16),
                         (N_CLIENTS, D + 2, torch.float32),
                         (N_CLIENTS, D + 1, torch.float32),
-                        (100, D, torch.float32)]:
+                        (100, D, torch.float32)] + [
+                            (K, n, torch.float32) for K, n in TABLE_AGG]:
         c = torch.rand(K, device=dev, generator=gen)
         c[::7] = 0.0                          # clients with no work
         d = padded(torch.randn(K, n, device=dev, generator=gen).to(dtype))
@@ -402,7 +447,7 @@ def check_weighted_agg(dev, D: int) -> float:
     return worst
 
 
-def check_masked_sgd(dev, leaves) -> float:
+def check_masked_sgd(dev, leaves, paper_leaves) -> float:
     from repro_torch.kernels import ops
     from repro_torch.kernels.masked_sgd import masked_sgd_plain
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -410,9 +455,14 @@ def check_masked_sgd(dev, leaves) -> float:
     worst = 0.0
     D = sum(leaves.values())
     # one local step's launches: every leaf as (clients, n) with a scale
-    # per client (zeros: masked steps), then the Pallas kernel's scalar form
+    # per client (zeros: masked steps), then the Pallas kernel's scalar
+    # form, then the client-sequential round's: every leaf of each paper
+    # model as one row
     cases = [(name, (N_CLIENTS, n)) for name, n in leaves.items()]
     cases.append(("scalar form", (D,)))
+    cases += [(f"{kind} {name}", (1, n))
+              for kind, model in paper_leaves.items()
+              for name, n in model.items()]
     for name, shape in cases:
         w = torch.randn(*shape, device=dev, generator=gen)
         g = torch.randn(*shape, device=dev, generator=gen)
@@ -802,7 +852,7 @@ def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
 
 
 def make_trainer(clients, device, agg: str = "auto", compression=None,
-                 sharding=None):
+                 sharding=None, mode: str = "client_parallel"):
     from repro_torch.configs.paper import EMNIST_CNN as cfg
     from repro_torch.fed import FederatedTrainer
     from repro_torch.models.small import (init_small, logits_small,
@@ -820,7 +870,7 @@ def make_trainer(clients, device, agg: str = "auto", compression=None,
         local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
         scheme="C", eta0=cfg.eta0, seed=0, engine="plan", agg=agg,
         compression=compression, device=device, model_kind=cfg.kind,
-        sharding=sharding)
+        sharding=sharding, mode=mode)
 
 
 def check_history(history) -> None:
@@ -1031,8 +1081,8 @@ def compressed_path(dev, f32_trainer, n_leaves: int, f32_profile):
     return out["int8"]
 
 
-def rounds_per_s_in_turns(trainers) -> None:
-    """Warm rounds/s of each trainer, WARM_ROUNDS rounds without eval at a
+def rounds_per_s_in_turns(trainers, rounds: int = WARM_ROUNDS) -> None:
+    """Warm rounds/s of each trainer, ``rounds`` rounds without eval at a
     time, in the order given and then reversed, TURNS times over; prints
     each one's median and its ratio to the first one's."""
     order = list(trainers)
@@ -1041,11 +1091,11 @@ def rounds_per_s_in_turns(trainers) -> None:
         for name in order + order[::-1]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            trainers[name].run(WARM_ROUNDS, eval_every=NO_EVAL)
+            trainers[name].run(rounds, eval_every=NO_EVAL)
             torch.cuda.synchronize()
-            times[name].append(WARM_ROUNDS / (time.perf_counter() - t0))
+            times[name].append(rounds / (time.perf_counter() - t0))
     first = float(np.median(times[order[0]]))
-    log(f"warm rounds/s in turns ({2 * TURNS} windows of {WARM_ROUNDS} "
+    log(f"warm rounds/s in turns ({2 * TURNS} windows of {rounds} "
         f"rounds each, median): "
         + ", ".join(f"{name} {np.median(r):.3f} "
                     f"({np.median(r) / first:.3f}x {order[0]})"
@@ -1344,7 +1394,331 @@ def _held(name: str, shape: str, got, want, unsharded, bad, tol) -> float:
     raise RuntimeError(f"the check of {name} does not see the planted fault")
 
 
-# -- 7. LM serving ------------------------------------------------------------
+# -- 7. the paper's experiments -----------------------------------------------
+def flat_params(params) -> torch.Tensor:
+    return torch.cat([params[k].reshape(-1) for k in sorted(params)])
+
+
+def sequential_reference_scenario(dev) -> None:
+    """The reference's own scenario of its int8 modes' invariant, in plan
+    mode (device-mode sampling is the reference's alone): the int8
+    client-sequential trainer's params and round records bit-identical to
+    the int8 client-parallel trainer's on the flat path; the same on the
+    f32 wire is printed, not required."""
+    from repro_torch.benchmarks.reference import reference_init
+    from repro_torch.configs.paper import SYNTHETIC_LR as cfg
+    from repro_torch.core.participation import TRACES
+    from repro_torch.data import synthetic_federation
+    from repro_torch.fed import Client, FederatedTrainer
+    from repro_torch.models.small import make_loss_fn
+    sc = SEQ_SCENARIO
+    train, test = synthetic_federation(0.5, 0.5, sc["n_clients"], seed=0)
+    log(f"client-sequential round, the reference's scenario: logreg, "
+        f"{sc['n_clients']} clients, E={sc['local_epochs']}, "
+        f"B={sc['batch_size']}, scheme C, eta0={sc['eta0']:g}, "
+        f"{sc['rounds']} rounds, plan engine, the reference's init")
+    for wire in ("int8", None):
+        runs = {}
+        for mode, agg in (("client_parallel", "flat"),
+                          ("client_sequential", "auto")):
+            rng = np.random.default_rng(0)
+            clients = [Client(x=tr[0], y=tr[1],
+                              trace=TRACES[rng.integers(0, 8)],
+                              x_test=te[0], y_test=te[1])
+                       for tr, te in zip(train, test)]
+            runs[mode] = FederatedTrainer(
+                loss_fn=make_loss_fn(cfg),
+                init_params=reference_init(cfg, dev), clients=clients,
+                local_epochs=sc["local_epochs"], batch_size=sc["batch_size"],
+                scheme="C", eta0=sc["eta0"], seed=0, engine="plan", agg=agg,
+                compression=wire, device=dev, model_kind=cfg.kind,
+                mode=mode)
+            runs[mode].run(sc["rounds"], eval_every=sc["eval_every"])
+        par, seq = runs["client_parallel"], runs["client_sequential"]
+        records = all(same_records(a, b) for a, b in
+                      zip(seq.history, par.history, strict=True))
+        same = all(bit_equal(seq.params[k], par.params[k])
+                   for k in par.params)
+        err = max_abs_err(flat_params(seq.params), flat_params(par.params))
+        log(f"  {wire or 'f32'}: sequential against flat parallel: params "
+            f"{'bit-identical' if same else 'DIFFERENT'} (max_abs_err "
+            f"{err:.3e}), round records {'equal' if records else 'DIFFER'}")
+        if wire and not (same and records):
+            raise RuntimeError(f"{wire}: the client-sequential trainer is "
+                               f"not bit-identical to the flat "
+                               f"client-parallel one in the reference's "
+                               f"scenario")
+
+
+def stacked_one_client_deltas(start, batches, alpha, eta):
+    """Each client's local steps alone (C = 1), stacked: the deltas the
+    client-sequential round computes, as one (C, ...) dict."""
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.core.fed_step import local_sgd
+    from repro_torch.models.small import make_loss_fn
+    rows = [local_sgd(make_loss_fn(cfg), start,
+                      {k: b[c:c + 1] for k, b in batches.items()},
+                      alpha[c:c + 1], eta) for c in range(alpha.shape[0])]
+    return {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+
+
+def sequential_full_width(dev, n_leaves: int, D: int) -> dict:
+    """The main path's trainer in mode="client_sequential" (62 slots, the
+    main path's rounds with its arrival and departure), f32 and int8,
+    teacher-forced: before every round it takes the params of the
+    client-parallel trainer's same round.  Per round: masked_sgd C x E x
+    leaves launches and no reduction kernel, round records equal to the
+    parallel run's, params bit-identical or within PARAM_TOL plus one code
+    step per client (step_bound) of it, with how many elements differ and
+    whether one client's local steps alone (C = 1) equal its row of the
+    C-client steps.  Then one warm round of each, its memory high-water
+    mark over its start (sequential: below C D 4 bytes), and warm rounds/s
+    in turns."""
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.core.aggregation import flatten_for_wire
+    from repro_torch.core.compression import resolve_compression
+    from repro_torch.core.fed_step import local_sgd
+    from repro_torch.fed import engine
+    from repro_torch.kernels import ops
+    from repro_torch.models.small import make_loss_fn
+    limit = N_CLIENTS * D * 4
+    calls = []
+    parallel_round = engine.fed_round_parallel
+
+    def spy(loss_fn, params, batches, alpha, coeffs, eta, **kw):
+        calls.append((batches, alpha, coeffs, eta))
+        return parallel_round(loss_fn, params, batches, alpha, coeffs, eta,
+                              **kw)
+    trainers = {}
+    for wire in (None, "int8"):
+        name = wire or "f32"
+        spec = resolve_compression(wire)
+        par = make_trainer(make_clients(), dev, compression=wire)
+        seq = make_trainer(make_clients(), dev, compression=wire,
+                           mode="client_sequential")
+        C, E = N_CLIENTS, seq.E
+        log(f"client-sequential round at full width, {name}: EMNIST CNN, "
+            f"{C} slots, {ROUNDS} rounds, each from the client-parallel "
+            f"run's params of that round")
+        total = dict.fromkeys(ops.launches, 0)
+        for tau in range(ROUNDS):
+            start = {k: v.clone() for k, v in par.params.items()}
+            calls.clear()
+            engine.fed_round_parallel = spy
+            try:
+                par.run(1, eval_every=EVAL_EVERY)
+            finally:
+                engine.fed_round_parallel = parallel_round
+            seq.params = {k: v.clone() for k, v in start.items()}
+            ops.reset_launches()
+            seq.run(1, eval_every=EVAL_EVERY)
+            torch.cuda.synchronize()
+            launches = dict(ops.launches)
+            want = expected_launches(masked_sgd=C * E * n_leaves)
+            if launches != want:
+                raise RuntimeError(f"{name} tau={tau}: sequential launches "
+                                   f"{launches} != expected {want}")
+            for k, v in launches.items():
+                total[k] += v
+            if not same_records(seq.history[-1], par.history[-1]):
+                raise RuntimeError(f"{name} tau={tau}: the sequential round "
+                                   f"record differs from the parallel one")
+            got = flat_params(seq.params).cpu()
+            want_p = flat_params(par.params).cpu()
+            diff = (got - want_p).abs()
+            tol = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * want_p.abs()
+            # the round's inputs, as the parallel round took them
+            batches, alpha, coeffs, eta = calls[0]
+            rows = local_sgd(make_loss_fn(cfg), start, batches, alpha, eta)
+            ones = stacked_one_client_deltas(start, batches, alpha, eta)
+            one_equal = all(bit_equal(ones[k], rows[k]) for k in rows)
+            one_err = max(max_abs_err(ones[k], rows[k]) for k in rows)
+            bound = torch.zeros_like(diff)
+            if spec.quantized:
+                flat_a, inverse = flatten_for_wire(start, rows, spec,
+                                                   cfg.kind)
+                flat_b, _ = flatten_for_wire(start, ones, spec, cfg.kind)
+                bound = step_bound(spec, coeffs.cpu(), flat_a.cpu(),
+                                   flat_b.cpu(), inverse)
+            n_diff = int((got.view(torch.int32)
+                          != want_p.view(torch.int32)).sum())
+            log(f"  tau={tau} event={seq.history[-1].event!r}: params "
+                + ("bit-identical" if n_diff == 0 else
+                   f"differ in {n_diff} of {got.numel()} elements")
+                + f" (max_abs_err {diff.max().item():.3e}"
+                + (f", largest excess over PARAM_TOL plus the step "
+                   f"{(diff - tol - bound).max().item():.3e}"
+                   if spec.quantized else "")
+                + f"); one client's local steps alone against its row of "
+                f"the {C}-client steps: "
+                + ("bit-identical" if one_equal else
+                   f"max_abs_err {one_err:.3e}"))
+            if not bool((diff <= tol + bound).all()):
+                raise RuntimeError(
+                    f"{name} tau={tau}: the sequential round's params are "
+                    f"off the parallel round's by more than PARAM_TOL"
+                    + (" plus one code step per client"
+                       if spec.quantized else ""))
+            del rows, ones
+        log(f"  {name}: launches over {ROUNDS} sequential rounds {total} "
+            f"(masked_sgd {C} slots x E={E} x {n_leaves} leaves = "
+            f"{C * E * n_leaves} one-row launches a round, no reduction "
+            f"kernel)")
+        peaks = {}
+        for label, tr in (("parallel", par), ("sequential", seq)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tr.run(1, eval_every=NO_EVAL)
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated() - base
+        log(f"  {name}: memory high-water mark of one warm round over its "
+            f"start: sequential {peaks['sequential']} bytes, parallel "
+            f"{peaks['parallel']} bytes (C D 4 = {limit} bytes)")
+        if peaks["sequential"] >= limit:
+            raise RuntimeError(f"{name}: the sequential round rose "
+                               f"{peaks['sequential']} bytes over its start, "
+                               f"not below C D 4 = {limit}")
+        trainers[name] = par
+        trainers[f"{name} sequential"] = seq
+    rounds_per_s_in_turns(trainers, rounds=SEQ_WARM_ROUNDS)
+
+
+def bound_check_on_card(dev) -> dict:
+    """benchmarks.bound_check at its defaults, in both modes, held to the
+    reference's rows (``benchmarks.reference.compare_bound_check``).
+    Returns each mode's seconds."""
+    from repro_torch.benchmarks import bound_check
+    from repro_torch.benchmarks import reference as R
+    from repro_torch.kernels import ops
+    want = R.reference_rows()["rows"]["bound_check"]
+    seconds = {}
+    for mode in ("client_parallel", "client_sequential"):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rows = bound_check.run(mode=mode, device=dev)
+        seconds[mode] = time.perf_counter() - t0
+        lines, failures = R.compare_bound_check(rows, want)
+        worst = max(abs(g[1] - r[1]) / abs(r[1]) for g, r in zip(rows, want))
+        log(f"bound_check, {mode}, {len(rows)} rows over 200 rounds in "
+            f"{seconds[mode]:.2f} s, launches {dict(ops.launches)}: errors "
+            f"within {worst:.3e} (relative) of the reference's, tolerance "
+            f"{R.BOUND_RTOL:g}; last error {rows[-1][1]:.6g} (first "
+            f"{rows[0][1]:.6g}, bound {rows[-1][2]:.6g})")
+        log(json.dumps({"bound_check": mode, "rows": rows}))
+        for line in lines:
+            log("  " + line)
+        if failures:
+            raise RuntimeError(f"bound_check {mode}: {failures}")
+    return seconds
+
+
+def tables_on_card(dev) -> None:
+    """Tables 3 (synthetic and images), 4 and 5 at the reference's defaults
+    from the reference's initial params, each row printed as one JSON line
+    with its seconds and held to the reference's rows by the rules of
+    ``benchmarks.reference``; every rule failure is listed before the phase
+    fails."""
+    from repro_torch.benchmarks import paper_tables as T
+    from repro_torch.benchmarks import reference as R
+    from repro_torch.kernels import ops
+    want = R.reference_rows()["rows"]
+    data = R.data_fingerprints()
+    same = data == R.reference_rows()["data"]
+    log(f"paper tables: the {len(data)} federations the tables draw, on "
+        f"this machine's numpy {np.__version__}: "
+        f"{'identical to' if same else 'DIFFERENT from'} the reference's "
+        f"(SHA-256 of every client's arrays)")
+    if not same:
+        raise RuntimeError(f"the tables' data differ from the reference's: "
+                           f"{data}")
+    log(f"paper tables on the card, rules: Table 3 signs beyond "
+        f"{R.TABLE3_NOISE_SAMPLES} held-out samples of {R.TABLE3_N_TEST}, "
+        f"Tables 4 and 5 epochs within +-{R.EPOCH_TOL}")
+    failures = []
+    ops.reset_launches()
+    for name, run, compare in (
+            ("table3_synthetic", lambda: T.table3_scheme_comparison(
+                dataset="synthetic", device=dev), R.compare_table3),
+            ("table3_images", lambda: T.table3_scheme_comparison(
+                dataset="images", device=dev), R.compare_table3),
+            ("table4", lambda: T.table4_fast_reboot(device=dev),
+             R.compare_table4),
+            ("table5", lambda: T.table5_departure_crossing(device=dev),
+             R.compare_table5)):
+        t0 = time.perf_counter()
+        rows = [list(r) for r in run()]
+        seconds = time.perf_counter() - t0
+        log(json.dumps({"table": name, "seconds": round(seconds, 3),
+                        "rows": rows}))
+        lines, fails = compare(rows, want[name])
+        for line in lines:
+            log("  " + line)
+        failures += fails
+    launches = dict(ops.launches)
+    log(f"  launches over the four tables: {launches}")
+    if not launches["weighted_agg"] or not launches["masked_sgd"]:
+        raise RuntimeError(f"the tables launched {launches}")
+    if failures:
+        raise RuntimeError(f"{len(failures)} table rules failed: {failures}")
+
+
+def teacher_forced_rows(dev) -> None:
+    """One row of each table, the card against the port on the CPU round by
+    round: before every round the card takes the CPU's params; the round
+    records must be equal, the eval losses within LOSS_RTOL and the params
+    within PARAM_TOL after every round."""
+    from repro_torch.benchmarks import paper_tables as T
+    makers = {"table3": T.table3_trainer, "table4": T.table4_trainer,
+              "table5": T.table5_trainer}
+    for label, table, args, rounds, every in TEACHER_FORCED:
+        card = makers[table](*args, device=dev)
+        cpu = makers[table](*args, device="cpu")
+        worst = 0.0
+        t0 = time.perf_counter()
+        for tau in range(rounds):
+            card.params = {k: v.to(dev, copy=True)
+                           for k, v in cpu.params.items()}
+            g = card.run(1, eval_every=every)[-1]
+            w = cpu.run(1, eval_every=every)[-1]
+            if not same_records(g, w):
+                raise RuntimeError(f"{label} tau={tau}: round records "
+                                   f"differ, card against CPU")
+            if math.isnan(g.loss) != math.isnan(w.loss) or (
+                    not math.isnan(w.loss)
+                    and abs(g.loss - w.loss) > LOSS_RTOL * abs(w.loss)):
+                raise RuntimeError(f"{label} tau={tau}: eval loss {g.loss} "
+                                   f"on the card, {w.loss} on the CPU")
+            for k, v in cpu.params.items():
+                got = card.params[k].cpu()
+                worst = max(worst, max_abs_err(got, v))
+                torch.testing.assert_close(got, v, **PARAM_TOL,
+                                           msg=f"{label} tau={tau} {k}")
+        log(f"  teacher-forced {label}: {rounds} rounds "
+            f"({time.perf_counter() - t0:.1f} s), records equal, params "
+            f"max_abs_err {worst:.3e} (rtol {PARAM_TOL['rtol']:g}, atol "
+            f"{PARAM_TOL['atol']:g}) after every round")
+
+
+def paper_path(dev, n_leaves: int, D: int) -> None:
+    """The paper's experiments and the client-sequential round (phase 7 of
+    the docstring), with each piece's seconds."""
+    t0 = time.perf_counter()
+    sequential_reference_scenario(dev)
+    sequential_full_width(dev, n_leaves, D)
+    t1 = time.perf_counter()
+    bound_s = bound_check_on_card(dev)
+    tables_on_card(dev)
+    t2 = time.perf_counter()
+    log("teacher-forced rows, card against the port on the CPU:")
+    teacher_forced_rows(dev)
+    t3 = time.perf_counter()
+    log(f"paper experiments: sequential rounds {t1 - t0:.1f} s, bound_check "
+        f"{sum(bound_s.values()):.1f} s, tables {t2 - t1:.1f} s, "
+        f"teacher-forced rows {t3 - t2:.1f} s")
+
+
+# -- 8. LM serving ------------------------------------------------------------
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1556,7 +1930,7 @@ def compare_with_chunked(params, cfg, prompts, cache, flash, planted):
     return chunked_s
 
 
-# -- 7b. Mamba2 SSD serving ---------------------------------------------------
+# -- 8b. Mamba2 SSD serving ---------------------------------------------------
 def ssm_prefill_logits(params, cfg, tokens, intra):
     """The prefill's last-position logits computed layer by layer from the
     port's building blocks, with ``intra`` as each layer's intra-chunk term
@@ -1778,7 +2152,7 @@ def ssm_serve_path(dev, planted):
     return launches
 
 
-# -- 8. timing ----------------------------------------------------------------
+# -- 9. timing ----------------------------------------------------------------
 def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for `spin` cycles (a few tens
@@ -2255,14 +2629,17 @@ def main() -> None:
         for line in ptxas_summary(report):
             log(f"  {name}: {line}")
 
-    from repro_torch.configs.paper import EMNIST_CNN
+    from repro_torch.configs.paper import EMNIST_CNN, MNIST_MLP, SYNTHETIC_LR
     from repro_torch.models.small import init_small
     leaves = {name: p.numel() for name, p in
               sorted(init_small(EMNIST_CNN, device=dev).items())}
     D = sum(leaves.values())
     log("kernels against their plain versions on the card:")
+    paper_leaves = {cfg.kind: {name: p.numel() for name, p in
+                               sorted(init_small(cfg, device=dev).items())}
+                    for cfg in (SYNTHETIC_LR, MNIST_MLP, EMNIST_CNN)}
     agg_err = check_weighted_agg(dev, D)
-    sgd_err = check_masked_sgd(dev, leaves)
+    sgd_err = check_masked_sgd(dev, leaves, paper_leaves)
     flash_err = check_flash_attention(dev, planted)
     quant_err = check_weighted_agg_quant(dev, D, planted_quant, planted_ring)
     check_quant_memory(dev, D)
@@ -2277,6 +2654,7 @@ def main() -> None:
     del f32_trainer
     wires_against_cpu(dev, int8_trainer.params)
     del int8_trainer
+    paper_path(dev, len(leaves), D)
     serve_launches = serve_path(dev, planted)
     ssm_launches = ssm_serve_path(dev, planted_ssd)
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.compression import (compress_flat, resolve_compression,
@@ -51,6 +52,11 @@ def scheme_coefficients(scheme: str, p, s, E: int) -> torch.Tensor:
     if scheme == "C":
         return torch.where(s > 0, E * p / torch.clamp(s, min=1.0), 0.0)
     raise ValueError(f"unknown scheme {scheme}")
+
+
+def theta_bound(scheme: str, n_clients: int, E: int) -> float:
+    """Assumption 3.5 upper bound p_tau^k / p^k <= theta."""
+    return {"A": float(n_clients), "B": 1.0, "C": float(E)}[scheme]
 
 
 def _apply(params: Params, update: Dict[str, torch.Tensor]) -> Params:
@@ -183,3 +189,42 @@ def aggregate_deltas_compressed_ref(params: Params, deltas: Params,
     if sharding is not None:
         agg = sharding.all_reduce(agg)
     return _apply_flat(params, agg if inverse is None else agg[inverse])
+
+
+def accumulate_delta(acc: Params, delta: Params, coeff) -> Params:
+    """Streaming form for the client-sequential mode: acc += c * delta, in
+    place, in f32.  The product and the sum are rounded each on its own
+    (two passes, never a fused multiply-add), the arithmetic of the flat
+    reduction's kernels, which add c_k * delta_k to their f32 sum in the
+    order k = 0..K-1.  coeff: a Python number or a 0-d tensor."""
+    c = torch.as_tensor(coeff, dtype=torch.float32,
+                        device=next(iter(acc.values())).device)
+    for name, a in acc.items():
+        a.add_(c * delta[name].float())
+    return acc
+
+
+def apply_accumulator(params: Params, acc: Params) -> Params:
+    """params <- params + acc (f32, rounded to the leaf's dtype), in
+    place."""
+    return _apply(params, acc)
+
+
+def expected_coeff_stats(scheme: str, p: np.ndarray, trace_samples,
+                         E: int, n_rounds: int = 2000, seed: int = 0):
+    """Monte-Carlo estimates of E[p_tau^k s_tau^k] etc. used by the theory
+    module (learning-rate scale, z_tau detection).  trace_samples(rng) must
+    return s: (C,) for one round.  A host statistic: the coefficients are
+    computed on CPU tensors, in f32 as on the device."""
+    rng = np.random.default_rng(seed)
+    C = len(p)
+    ps_sum = np.zeros(C)
+    for _ in range(n_rounds):
+        s = trace_samples(rng)
+        c = scheme_coefficients(scheme, p, s, E).numpy()
+        ps_sum += c * s
+    Eps = ps_sum / n_rounds
+    ratio = Eps / np.maximum(p, 1e-12)
+    z = float(np.std(ratio) > 1e-6 * max(1.0, np.mean(np.abs(ratio))))
+    return {"E_ps": Eps, "ratio": ratio, "z": z,
+            "E_sum_ps": float(np.sum(Eps))}

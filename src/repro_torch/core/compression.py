@@ -215,6 +215,34 @@ def round_trip(flat: torch.Tensor, spec: CompressionSpec) -> torch.Tensor:
                               d=flat.shape[1])
 
 
+def round_trip_tree(delta, spec: CompressionSpec,
+                    model_kind: str | None = None):
+    """Round-trip one client's delta (a dict of leaves in the params'
+    shapes, no client axis) through the wire format; returns a new dict.
+
+    The delta goes through the flat (1, D_total) row of
+    ``core.aggregation.flatten_for_wire``, the same element order and chunk
+    grid as the client-parallel path's (C, D_total) buffer, the CNN's
+    reference-ordered grid included, so the client-sequential accumulator
+    quantizes each client exactly as the parallel round does.  Identity
+    for kind='none'."""
+    if not spec.active:
+        return delta
+    from repro_torch.core.aggregation import flatten_for_wire
+    flat, inverse = flatten_for_wire(
+        delta, {name: d[None] for name, d in delta.items()}, spec,
+        model_kind)
+    rt = round_trip(flat, spec)[0]
+    if inverse is not None:
+        rt = rt[inverse]
+    out, off = {}, 0
+    for name in sorted(delta):
+        n = delta[name].numel()
+        out[name] = rt[off:off + n].reshape(delta[name].shape)
+        off += n
+    return out
+
+
 def wire_bytes(D: int, spec, *, n_clients: int = 1) -> int:
     """Analytic bytes on the wire for one round of client->aggregator delta
     traffic.  f32: 4*D per client.  int8: 1 byte per code for the D live

@@ -1,11 +1,14 @@
 """The federated round (Eq. 1-2) in the equivalent view (App. A.1.1).
 
-Counterpart of ``repro/core/fed_step.py``, client-parallel layout.  All C
-clients of a round train at once as one batched computation (the written
--out form of the reference's ``jax.vmap`` over clients): each leaf holds
-the C clients' copies as one (C, ...) tensor, one backward pass gives every
-client its own gradient, and each of the E steps updates every leaf with
-one ``masked_sgd`` launch scaled per client by eta * alpha[c, e].
+Counterpart of ``repro/core/fed_step.py``, in its two modes.
+Client-parallel: all C clients of a round train at once as one batched
+computation (the written-out form of the reference's ``jax.vmap`` over
+clients): each leaf holds the C clients' copies as one (C, ...) tensor,
+one backward pass gives every client its own gradient, and each of the E
+steps updates every leaf with one ``masked_sgd`` launch scaled per client
+by eta * alpha[c, e].  Client-sequential: the clients train one at a time
+(C = 1 of the same batched code) into a streaming accumulator, so only
+the global params, the accumulator and one client's delta exist at once.
 
 Local updates are vanilla SGD (the paper's optimizer) with the staircase
 learning rate supplied per round; each step is masked by alpha[c, e] in
@@ -13,14 +16,18 @@ learning rate supplied per round; each step is masked by alpha[c, e] in
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core.aggregation import (aggregate_deltas,
+from repro_torch.core.aggregation import (accumulate_delta,
+                                          aggregate_deltas,
                                           aggregate_deltas_compressed_ref,
-                                          aggregate_deltas_flat)
-from repro_torch.core.compression import resolve_compression
+                                          aggregate_deltas_flat,
+                                          apply_accumulator)
+from repro_torch.core.compression import (resolve_compression,
+                                          round_trip_tree)
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
@@ -101,3 +108,56 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
                 params, deltas, coeffs, spec, model_kind, sharding=sharding)
         return aggregate_deltas(params, deltas, coeffs, sharding=sharding)
     raise ValueError(f"agg must be tree|flat, got {agg!r}")
+
+
+def fed_round_sequential(loss_fn: Callable, params: Params, batches,
+                         alpha: torch.Tensor, coeffs: torch.Tensor,
+                         eta: torch.Tensor, *, compression=None,
+                         model_kind: Optional[str] = None) -> Params:
+    """Same contract as fed_round_parallel, with the clients taken one at a
+    time to bound memory: only the global params, the f32 accumulator and
+    ONE client's delta exist at once, never a (C, D_total) buffer or a
+    C-fold copy of the params.  Client c runs ``local_sgd`` on its one-row
+    slice of ``batches`` and ``alpha``; on an active wire its delta is
+    round-tripped through the wire format on the parallel path's element
+    order and chunk grid (``core.compression.round_trip_tree``); then
+    ``acc += coeffs[c] * delta`` for c = 0..C-1, from zero, each product
+    and sum rounded on its own.  The new params (params + acc) are written
+    into ``params`` in place.
+
+    So on a quantized wire this round equals the flat client-parallel
+    round (``agg="flat"``) bit for bit wherever the local steps of one
+    client equal its row of the C-client steps: the flat reduction adds
+    c_k * dequantized row k in the same order.  The reference's
+    ``with_metrics`` (the round's delta norm) is not ported yet (ROADMAP
+    item 2), nor is this mode under sharding (item 6)."""
+    spec = resolve_compression(compression)
+    acc = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for name, p in params.items()}
+    for c in range(alpha.shape[0]):
+        delta = local_sgd(loss_fn, params,
+                          {k: b[c:c + 1] for k, b in batches.items()},
+                          alpha[c:c + 1], eta)
+        delta = {name: d[0] for name, d in delta.items()}
+        if spec.active:
+            delta = round_trip_tree(delta, spec, model_kind)
+        accumulate_delta(acc, delta, coeffs[c])
+        del delta
+    return apply_accumulator(params, acc)
+
+
+def make_fed_round(loss_fn: Callable, mode: str = "client_parallel",
+                   agg: str = "tree", compression=None,
+                   model_kind: Optional[str] = None) -> Callable:
+    """Returns fed_round(params, batches, alpha, coeffs, eta) -> new
+    params, in ``mode`` client_parallel (with ``agg``) or
+    client_sequential."""
+    if mode == "client_parallel":
+        return functools.partial(fed_round_parallel, loss_fn, agg=agg,
+                                 compression=compression,
+                                 model_kind=model_kind)
+    if mode != "client_sequential":
+        raise ValueError(f"mode must be client_parallel|client_sequential, "
+                         f"got {mode!r}")
+    return functools.partial(fed_round_sequential, loss_fn,
+                             compression=compression, model_kind=model_kind)

@@ -3,8 +3,9 @@
 Copy of the reference's ``data/images.py`` generators: seeded
 class-prototype images (28x28, one prototype per class, Gaussian pixel
 noise, prototype mixing), split over clients with the paper's label-sorted
-non-IID partition and Type-I Pareto sample counts.  Nothing is downloaded;
-the same seed gives the same arrays as the reference.
+non-IID partition or an IID one, with Type-I Pareto sample counts.
+Nothing is downloaded; the same seed gives the same arrays as the
+reference.
 """
 from __future__ import annotations
 
@@ -57,6 +58,22 @@ def label_sorted_partition(x, y, n_clients: int, labels_per_client: int = 1,
                     rng.integers(0, len(pool), size=per)]
             idxs.extend(take)
         idxs = np.array(idxs[:need])
+        train.append((x[idxs[:-holdout]], y[idxs[:-holdout]]))
+        test.append((x[idxs[-holdout:]], y[idxs[-holdout:]]))
+    return train, test
+
+
+def iid_partition(x, y, n_clients: int, seed: int = 0,
+                  pareto_index: float = 0.5, min_samples: int = 50,
+                  holdout: int = 20):
+    """IID split: each client draws its samples uniformly from the whole
+    pool, with Type-I Pareto counts (clipped to [min_samples, 400])."""
+    rng = np.random.default_rng(seed)
+    raw = rng.pareto(pareto_index, size=n_clients) + 1.0
+    counts = np.clip((raw * min_samples).astype(int), min_samples, 400)
+    train, test = [], []
+    for k in range(n_clients):
+        idxs = rng.integers(0, len(x), size=counts[k] + holdout)
         train.append((x[idxs[:-holdout]], y[idxs[:-holdout]]))
         test.append((x[idxs[-holdout:]], y[idxs[-holdout:]]))
     return train, test

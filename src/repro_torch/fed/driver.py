@@ -14,10 +14,13 @@ coefficient 0).  Two modes:
   engine="host"   the seed per-round host loop (the reference path of the
                   parity tests).
 
-The reference's device-mode sampling (``engine="device"``) waits for a
-later slice.  ``sharding=`` (``fed.sharding.FedSharding``) shards the plan
-engine's client axis over a ``torch.distributed`` group; the host loop
-stays unsharded, as the reference's does.
+``mode="client_sequential"`` makes the plan engine train the clients one
+at a time into a streaming accumulator (memory-bounded); the host loop
+stays client-parallel, as the reference's does.  The reference's
+device-mode sampling (``engine="device"``) waits for a later slice.
+``sharding=`` (``fed.sharding.FedSharding``) shards the plan engine's
+client axis over a ``torch.distributed`` group; the host loop stays
+unsharded, as the reference's does.
 """
 from __future__ import annotations
 
@@ -82,6 +85,8 @@ class FederatedTrainer:
     ``sharding`` (``fed.sharding.make_fed_sharding()``) gives the plan
     engine's client slots to the ranks of a process group; every rank
     runs the trainer and holds the same replicated params and history.
+    ``mode`` (``"client_parallel"`` or ``"client_sequential"``) is the
+    plan engine's round (``fed.engine.RoundEngine``).
     """
 
     def __init__(self, *, loss_fn: Callable,
@@ -93,7 +98,8 @@ class FederatedTrainer:
                  bound_terms: Optional[BoundTerms] = None,
                  seed: int = 0, engine: str = "plan", agg: str = "auto",
                  compression=None, device=None,
-                 model_kind: Optional[str] = None, sharding=None):
+                 model_kind: Optional[str] = None, sharding=None,
+                 mode: str = "client_parallel"):
         if engine not in ("plan", "host"):
             raise ValueError(f"engine must be plan|host, got {engine!r}")
         if engine == "host" and sharding is not None:
@@ -120,6 +126,7 @@ class FederatedTrainer:
         self.engine_mode = engine
         self.agg = agg
         self.sharding = sharding
+        self.mode = mode
         self._scheduler = None
         # membership bookkeeping
         self.objective: set = {i for i, c in enumerate(clients)
@@ -248,7 +255,7 @@ class FederatedTrainer:
                 local_epochs=self.E, batch_size=self.B, scheme=self.scheme,
                 eta0=self.eta0, agg=self.agg, device=self.device,
                 compression=self.compression, model_kind=self.model_kind,
-                sharding=self.sharding)
+                sharding=self.sharding, mode=self.mode)
             self._scheduler = StreamScheduler(
                 clients=self.clients, init_params=self.params, engine=engine,
                 reboot_boost=self.reboot_boost, fast_reboot=self.fast_reboot,

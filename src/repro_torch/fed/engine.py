@@ -9,6 +9,8 @@ A/B/C coefficients, the fast-reboot boost (exact O((tau-tau0)^-2) decay at
 every round) and the staircase LR are computed on the device, and the
 round's deltas are reduced with one kernel launch (``agg="flat"``) or leaf
 by leaf (``agg="tree"``), through the wire format of ``compression=``.
+``mode="client_sequential"`` trains the clients one at a time into a
+streaming accumulator instead (``core.fed_step.fed_round_sequential``).
 
 Capacity slots: slots beyond the founding clients start empty;
 ``admit_many`` writes a burst of clients into slots with one transfer per
@@ -34,7 +36,8 @@ import torch
 
 from repro_torch.core.aggregation import scheme_coefficients
 from repro_torch.core.compression import resolve_compression
-from repro_torch.core.fed_step import fed_round_parallel
+from repro_torch.core.fed_step import (fed_round_parallel,
+                                       fed_round_sequential)
 from repro_torch.device import resolve_device
 from repro_torch.fed.task import ArrayTask
 
@@ -57,6 +60,11 @@ class RoundEngine:
     payload as it is.  ``model_kind`` (``PaperModelConfig.kind``) fixes
     the quantized wire's element order: the CNN's is gathered into the
     reference's (``core.aggregation.flatten_for_wire``).
+
+    ``mode`` is ``"client_parallel"`` (all clients as one batch, then one
+    reduction of their (C, D) deltas) or ``"client_sequential"`` (one
+    client at a time into an f32 accumulator, memory-bounded; ``agg`` does
+    not apply to it).
     """
 
     def __init__(self, *, clients, local_epochs: int, batch_size: int,
@@ -65,7 +73,15 @@ class RoundEngine:
                  capacity: Optional[int] = None,
                  max_samples: Optional[int] = None, device=None,
                  compression=None, model_kind: Optional[str] = None,
-                 sharding=None):
+                 sharding=None, mode: str = "client_parallel"):
+        if mode not in ("client_parallel", "client_sequential"):
+            raise ValueError(f"mode must be client_parallel|"
+                             f"client_sequential, got {mode!r}")
+        if mode == "client_sequential" and sharding is not None:
+            raise ValueError("the client-sequential round is not sharded "
+                             "yet (ROADMAP item 6): pass sharding= with "
+                             "mode='client_parallel'")
+        self.mode = mode
         if (task is None) == (loss_fn is None):
             raise ValueError("pass exactly one of task= or loss_fn=")
         if task is None:
@@ -201,11 +217,17 @@ class RoundEngine:
             alpha, coeffs = (self.sharding.shard(x) for x in (alpha, coeffs))
         batches = self.task.make_batch(
             {name: buf[self._slots, idx] for name, buf in self.data.items()})
-        params = fed_round_parallel(self.loss_fn, params, batches, alpha,
-                                    coeffs, eta, agg=self.agg,
-                                    compression=self.compression,
-                                    model_kind=self.model_kind,
-                                    sharding=self.sharding)
+        if self.mode == "client_sequential":
+            params = fed_round_sequential(self.loss_fn, params, batches,
+                                          alpha, coeffs, eta,
+                                          compression=self.compression,
+                                          model_kind=self.model_kind)
+        else:
+            params = fed_round_parallel(self.loss_fn, params, batches, alpha,
+                                        coeffs, eta, agg=self.agg,
+                                        compression=self.compression,
+                                        model_kind=self.model_kind,
+                                        sharding=self.sharding)
         return params, s, eta
 
     # -- host entry point -----------------------------------------------------

@@ -98,7 +98,13 @@ def logits_clients(params: Params, cfg: PaperModelConfig,
     """params with a leading client axis C; x (C, B, *input_shape) ->
     (C, B, n_classes)."""
     if cfg.kind == "logreg":
-        return torch.bmm(x, params["w"]) + params["b"][:, None]
+        # a broadcast product summed over the features, not a batched
+        # GEMM: cuBLAS picks its GEMM kernel by the batch count, so one
+        # client alone (the client-sequential round) would sum its logits
+        # in another order than its row of the C-client product; this
+        # reduction sums each client's in one order whatever C is
+        return ((x[..., None] * params["w"][:, None]).sum(-2)
+                + params["b"][:, None])
     if cfg.kind == "mlp":
         xf = x.reshape(*x.shape[:2], -1)
         h = torch.relu(torch.bmm(xf, params["w1"]) + params["b1"][:, None])
@@ -141,6 +147,13 @@ def make_loss_fn(cfg: PaperModelConfig):
 
 def accuracy(params: Params, cfg: PaperModelConfig, x: torch.Tensor,
              y: torch.Tensor) -> torch.Tensor:
-    """One model's accuracy on (x, y)."""
-    lg = logits_small(params, cfg, x)
-    return (lg.argmax(-1) == y).float().mean()
+    """One model's accuracy on (x, y): the count of correct predictions
+    times the f32 reciprocal of their number, as the reference's mean
+    rounds it (and a mean on CUDA; on the CPU ``mean`` divides, which can
+    round the same count one ulp apart)."""
+    return accuracy_of(logits_small(params, cfg, x), y)
+
+
+def accuracy_of(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The accuracy of (n, classes) logits on (n,) labels (``accuracy``)."""
+    return (logits.argmax(-1) == y).float().sum() * (1.0 / y.numel())

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
-or ``tools/weighted_agg_quant_turns.py``) imports jax or the reference
-package, and its entry points refuse to run without a CUDA device unless
-the CPU is asked for."""
+or the port's tools: ``tools/weighted_agg_quant_turns.py``,
+``tools/paper_drift.py``, ``tools/batch_invariance.py``) imports jax or the
+reference package, and its entry points refuse to run without a
+CUDA device unless the CPU is asked for."""
 import os
 import pathlib
 import re
@@ -20,7 +21,12 @@ import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-assert "repro_torch.fed.sharding" in names
+for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
+             "repro_torch.data.synthetic",
+             "repro_torch.benchmarks.paper_tables",
+             "repro_torch.benchmarks.bound_check",
+             "repro_torch.benchmarks.reference"):
+    assert name in names, name
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -36,7 +42,7 @@ def test_every_port_module_imports_without_jax_or_reference():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20     # every module was reached
+    assert int(out.stdout.split()[-1]) >= 25     # every module was reached
 
 
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
@@ -45,7 +51,9 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
-                            ROOT / "tools" / "weighted_agg_quant_turns.py"],
+                            ROOT / "tools" / "weighted_agg_quant_turns.py",
+                            ROOT / "tools" / "paper_drift.py",
+                            ROOT / "tools" / "batch_invariance.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_reference(path):
     assert not FORBIDDEN.findall(path.read_text()), path
@@ -72,9 +80,17 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         RoundEngine(loss_fn=make_loss_fn(SYNTHETIC_LR), clients=clients,
                     local_epochs=2, batch_size=2)
+    from repro_torch.benchmarks import bound_check, paper_tables
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bound_check.run(rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper_tables.table4_fast_reboot(rounds_after=1, taus=(1,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper_tables.table3_trainer("synthetic", True, 1, "C")
     # asked for, the CPU runs
     FederatedTrainer(loss_fn=make_loss_fn(SYNTHETIC_LR), init_params=params,
                      clients=clients, device="cpu")
+    bound_check.run(rounds=1, device="cpu")
 
 
 def test_serving_entry_points_refuse_to_run_without_cuda(monkeypatch):

@@ -4,9 +4,10 @@ departure, on the same data, traces, seed and initial parameters.
 
 Plan mode samples participation and batches with the host numpy RNG in the
 seed order in both packages, so every RoundRecord's tau, eta, n_active,
-s and event must be equal.  Loss, accuracy and parameters are f32
-computations in another summation order: loss rtol 1e-5, parameters
-rtol 1e-5 / atol 1e-6 after the run."""
+s and event must be equal.  Each side draws its data with its own
+package's generators (the same arrays, tests/test_torch_theory.py).
+Loss, accuracy and parameters are f32 computations in another summation
+order: loss rtol 1e-5, parameters rtol 1e-5 / atol 1e-6 after the run."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,11 +18,12 @@ import repro.fed as ref_fed
 import repro_torch.fed as port_fed
 from repro.configs.paper import EMNIST_CNN, SYNTHETIC_LR
 from repro.core.participation import TRACES
-from repro.data import synthetic_federation
+from repro.data import synthetic_federation as ref_synthetic_federation
 from repro.models.small import init_small, logits_small, make_loss_fn
 from repro_torch.configs import paper as port_configs
 from repro_torch.core.participation import TRACES as PORT_TRACES
-from repro_torch.data import label_sorted_partition, make_class_dataset
+from repro_torch.data import (label_sorted_partition, make_class_dataset,
+                              synthetic_federation)
 from repro_torch.models import small as port_small
 from repro_torch.params import from_jax, to_numpy
 
@@ -48,15 +50,16 @@ def port_eval(cfg):
     return eval_fn
 
 
-def _data(kind):
+def _data(kind, port: bool):
     if kind == "logreg":
-        return synthetic_federation(0.5, 0.5, 6, seed=0)
+        return (synthetic_federation if port else ref_synthetic_federation)(
+            0.5, 0.5, 6, seed=0)
     x, y = make_class_dataset(62, 20, seed=0)
     return label_sorted_partition(x, y, 3, seed=0)
 
 
 def _clients(client_cls, traces, kind):
-    train, test = _data(kind)
+    train, test = _data(kind, port=client_cls is port_fed.Client)
     rng = np.random.default_rng(0)
     clients = [client_cls(x=tr[0], y=tr[1], trace=traces[rng.integers(0, 8)],
                           x_test=te[0], y_test=te[1])
@@ -66,24 +69,29 @@ def _clients(client_cls, traces, kind):
     return clients
 
 
-# (model, engine, agg of both packages, eta0)
+# (model, engine, agg of both packages, eta0[, scheme, fast_reboot]); the
+# scheme is C and fast reboot on unless named
 CASES = {
     "logreg-plan": ("logreg", "plan", "tree", 0.5),
     "logreg-plan-flat": ("logreg", "plan", "flat", 0.5),
     "logreg-host": ("logreg", "host", "tree", 0.5),
     "cnn-plan": ("cnn", "plan", "tree", 0.05),
+    "logreg-plan-scheme-A": ("logreg", "plan", "tree", 0.5, "A"),
+    "logreg-plan-scheme-B": ("logreg", "plan", "tree", 0.5, "B"),
+    "logreg-host-scheme-A": ("logreg", "host", "tree", 0.5, "A"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_trainer_matches_reference_round_for_round(case):
-    kind, engine, agg, eta0 = CASES[case]
+    kind, engine, agg, eta0, scheme, fast_reboot = \
+        (CASES[case] + ("C", True))[:6]
     cfg = SYNTHETIC_LR if kind == "logreg" else EMNIST_CNN
     pcfg = port_configs.PAPER_CONFIGS[cfg.name]
     init = {k: np.asarray(v)
             for k, v in init_small(jax.random.PRNGKey(0), cfg).items()}
-    common = dict(local_epochs=5, batch_size=10, scheme="C", eta0=eta0,
-                  seed=0, engine=engine, agg=agg)
+    common = dict(local_epochs=5, batch_size=10, scheme=scheme, eta0=eta0,
+                  seed=0, engine=engine, agg=agg, fast_reboot=fast_reboot)
     ref = ref_fed.FederatedTrainer(
         loss_fn=make_loss_fn(cfg), eval_fn=ref_eval(cfg),
         init_params={k: jnp.asarray(v) for k, v in init.items()},
@@ -114,6 +122,55 @@ def test_trainer_matches_reference_round_for_round(case):
     for k, v in ref.params.items():
         np.testing.assert_allclose(got_params[k], np.asarray(v), err_msg=k,
                                    **PARAM_TOL)
+
+
+# (scheme, fast_reboot), held round by round from the reference's params:
+# free-running, the vanilla reboot's eval loss drifts 2.0e-5 (relative)
+# from the reference's by round 4, f32 summation order past the loss rtol
+TEACHER_FORCED = {"scheme-A": ("A", True), "scheme-B": ("B", True),
+                  "vanilla-reboot": ("C", False)}
+
+
+@pytest.mark.parametrize("case", sorted(TEACHER_FORCED))
+def test_trainer_matches_reference_teacher_forced(case):
+    """Before every round the reference's params are copied into the port;
+    the round records, eval losses (rtol 1e-5) and accuracies and the
+    params after the round (PARAM_TOL) must agree."""
+    scheme, fast_reboot = TEACHER_FORCED[case]
+    cfg = SYNTHETIC_LR
+    pcfg = port_configs.PAPER_CONFIGS[cfg.name]
+    init = {k: np.asarray(v)
+            for k, v in init_small(jax.random.PRNGKey(0), cfg).items()}
+    common = dict(local_epochs=5, batch_size=10, scheme=scheme, eta0=0.5,
+                  seed=0, engine="plan", agg="tree", fast_reboot=fast_reboot)
+    ref = ref_fed.FederatedTrainer(
+        loss_fn=make_loss_fn(cfg), eval_fn=ref_eval(cfg),
+        init_params={k: jnp.asarray(v) for k, v in init.items()},
+        clients=_clients(ref_fed.Client, TRACES, "logreg"), interpret=True,
+        **common)
+    port = port_fed.FederatedTrainer(
+        loss_fn=port_small.make_loss_fn(pcfg), eval_fn=port_eval(pcfg),
+        init_params=from_jax(init, pcfg, "cpu"),
+        clients=_clients(port_fed.Client, PORT_TRACES, "logreg"),
+        device="cpu", **common)
+    for _ in range(5):
+        port.params = from_jax({k: np.asarray(v)
+                                for k, v in ref.params.items()}, pcfg, "cpu")
+        w = ref.run(1, eval_every=2)[-1]
+        g = port.run(1, eval_every=2)[-1]
+        assert (g.tau, g.eta, g.n_active, g.event) == \
+            (w.tau, w.eta, w.n_active, w.event)
+        np.testing.assert_array_equal(g.s, w.s)
+        assert np.isnan(g.loss) == np.isnan(w.loss)
+        if not np.isnan(w.loss):
+            np.testing.assert_allclose(g.loss, w.loss, rtol=1e-5)
+            assert g.acc == w.acc
+        got = to_numpy(port.params, pcfg)
+        for k, v in ref.params.items():
+            np.testing.assert_allclose(got[k], np.asarray(v), err_msg=k,
+                                       **PARAM_TOL)
+    assert any(h.event.startswith("arrival") for h in port.history)
+    assert port.reboots if fast_reboot else not port.reboots
 
 
 def test_plan_engine_resumes_across_run_calls_and_picks_tree_on_cpu():
@@ -151,9 +208,11 @@ def test_one_client_federation_matches_reference(engine):
     pcfg = port_configs.PAPER_CONFIGS[cfg.name]
     init = {k: np.asarray(v)
             for k, v in init_small(jax.random.PRNGKey(0), cfg).items()}
-    (train,), (test,) = synthetic_federation(0.5, 0.5, 1, seed=0)
 
     def clients(client_cls, traces):
+        make = (synthetic_federation if client_cls is port_fed.Client
+                else ref_synthetic_federation)
+        (train,), (test,) = make(0.5, 0.5, 1, seed=0)
         return [client_cls(x=train[0], y=train[1], trace=traces[3],
                            x_test=test[0], y_test=test[1])]
 
