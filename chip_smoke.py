@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
-round, the compressed federated round, the client-sharded round, the
+round in plan and device mode, the compressed federated round, the client-sharded round, the
 paper's experiments with the client-sequential round, LM serving and
 Mamba2 SSD serving.
 
@@ -40,7 +40,23 @@ it, and nothing of JAX or of the JAX package.  In order it
    one excluding departure; checks each kernel's launch count, finite eval
    losses, and the card's parameters against the port's plain path (the
    same trainer on the CPU); then times warm rounds and profiles two;
-5. drives the compressed round, the same trainer with
+5. drives device-mode sampling, ``FederatedTrainer(engine="device")`` on
+   the same federation with a TraceShift and an InactivityBurst beside the
+   arrival and the departure: launch counts (weighted_agg once a round,
+   masked_sgd 8 leaves x E a round), both events applied and the burst's
+   cohort dark for its rounds, every round's s on the card equal bit for
+   bit to the same trainer's on the CPU (the draw is jax's threefry, the
+   s-law table the same code's), params within PARAM_TOL of the CPU's,
+   finite eval losses; then warm rounds/s of device and plan mode in
+   turns (also with every round a span of its own), a profile of two
+   device-mode rounds against the plan round's kernels, and the draw alone (``RoundEngine.sample_span`` over a span of
+   DRAW_SPAN rounds): its launches and device time per round; the int8
+   wire in device mode (weighted_agg_quant once a round, the f32 run's
+   draws); and the reference's quickstart (SYNTHETIC(1, 1), 20 clients,
+   logreg, 50 rounds from the reference's initial params) on the card and
+   the CPU: equal round records, final accuracies within 0.02 of each
+   other, printed beside the reference's noted ~0.87, and rounds/s;
+6. drives the compressed round, the same trainer with
    ``compression="int8"``, ``"int8-topk"`` and ``"bf16"``: launch counts,
    round records equal to the f32 run's, finite eval losses, wire bytes,
    warm rounds/s in turns with f32, and profiles of int8 and int8-topk
@@ -48,7 +64,7 @@ it, and nothing of JAX or of the JAX package.  In order it
    params and round inputs, the card's quantizer against the CPU's (bit
    for bit) and one round per wire on the card against the CPU (within
    PARAM_TOL plus one code step per client, see step_bound);
-6. drives the sharded round: the same trainer with
+7. drives the sharded round: the same trainer with
    ``sharding=make_fed_sharding()`` over a one-rank NCCL group (a
    ``file://`` init under ``build/``), on the f32 and int8 wires: launch
    counts (weighted_agg_sharded or weighted_agg_quant_sharded once per
@@ -61,7 +77,7 @@ it, and nothing of JAX or of the JAX package.  In order it
    launch and the all-reduce timed apart over repeated windows (median and
    spread), beside what each piece of the call costs the host.  The group
    is destroyed when the phase ends;
-7. runs the paper's experiments and the client-sequential round
+8. runs the paper's experiments and the client-sequential round
    (``FederatedTrainer(mode="client_sequential")``): in the reference's
    own scenario of its int8 modes' invariant (logreg, 4 clients, E 3, 8
    rounds, plan mode), the int8 sequential trainer's params and round
@@ -81,7 +97,7 @@ it, and nothing of JAX or of the JAX package.  In order it
    lines with their seconds; then one row of each table teacher-forced
    against the port on the CPU (records equal, params within PARAM_TOL
    after every round);
-8. serves nemotron-4-15b at full width in bf16 with
+9. serves nemotron-4-15b at full width in bf16 with
    ``attn_impl="flash"`` through ``repro_torch.launch.serve.serve``: a
    batch of 4 prompts of 4,096 tokens, then 32 decode steps; checks
    flash_attention's launches (one per layer per prefill, none per decode
@@ -96,14 +112,14 @@ it, and nothing of JAX or of the JAX package.  In order it
    against the model with the intra-chunk term in f64 (LOGITS_FACTOR),
    decode steps against the full forward in f32, the reduced config on the
    card against the CPU; prefill and decode times, busy shares, memory;
-9. times each kernel beside its bound, its plain version and the one
+10. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (weighted_agg_quant from
    device memory and, beside it, from L2; for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
    composition of calls, ssd_intra_chunk's computing the group's scores
    once for its heads as the kernel does; for flash_attention,
    scaled_dot_product_attention, whose backend is named and each backend
-   timed), and prints them, the sharded kernels' timings from step 6 among
+   timed), and prints them, the sharded kernels' timings from step 7 among
    them, as one ``{"kernels": [...]}`` line.  ssd_intra_chunk's bound
    counts the group's scores once per pair, as its inputs need, and the
    per-head reckoning (the scores counted once per head) is printed
@@ -351,6 +367,21 @@ TABLE_AGG = [(24, 610), (24, 159_010), (10, 610)]
 SEQ_SCENARIO = dict(n_clients=4, local_epochs=3, batch_size=10, eta0=0.5,
                     rounds=8, eval_every=4)
 SEQ_WARM_ROUNDS = 3     # the sequential round's warm windows, in turns
+# device mode (engine="device"): the main path's federation plus a
+# TraceShift of client 5 to trace 5 (bw_low) at tau 1 and clients 0-2 dark
+# for 2 rounds from tau 3; the int8 wire for DEVICE_INT8_ROUNDS rounds
+DEVICE_SHIFT = (1, 5, 5)            # (tau, client, index into TRACES)
+DEVICE_BURST = (3, 2, (0, 1, 2))    # (tau, duration, clients)
+DEVICE_INT8_ROUNDS = 2
+DRAW_SPAN = 10                      # rounds of the timed draw
+# the reference's quickstart (examples/quickstart.py): SYNTHETIC(1, 1), 20
+# clients, logreg, scheme C, E 5, B 20, eta0 1.0, 50 rounds, eval every 5;
+# its accuracy after 50 rounds as the verify notes give it, and how far the
+# card's may lie from the CPU's
+QUICKSTART = dict(n_clients=20, local_epochs=5, batch_size=20, eta0=1.0,
+                  rounds=50, eval_every=5)
+QUICKSTART_NOTED_ACC = 0.87
+QUICKSTART_ACC_TOL = 0.02
 # one teacher-forced row per table, card against the port on the CPU: (label,
 # table, trainer arguments, rounds, eval_every)
 TEACHER_FORCED = (
@@ -852,7 +883,8 @@ def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
 
 
 def make_trainer(clients, device, agg: str = "auto", compression=None,
-                 sharding=None, mode: str = "client_parallel"):
+                 sharding=None, mode: str = "client_parallel",
+                 engine: str = "plan"):
     from repro_torch.configs.paper import EMNIST_CNN as cfg
     from repro_torch.fed import FederatedTrainer
     from repro_torch.models.small import (init_small, logits_small,
@@ -868,7 +900,7 @@ def make_trainer(clients, device, agg: str = "auto", compression=None,
         loss_fn=make_loss_fn(cfg), eval_fn=eval_fn,
         init_params=init_small(cfg, seed=0, device=device), clients=clients,
         local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
-        scheme="C", eta0=cfg.eta0, seed=0, engine="plan", agg=agg,
+        scheme="C", eta0=cfg.eta0, seed=0, engine=engine, agg=agg,
         compression=compression, device=device, model_kind=cfg.kind,
         sharding=sharding, mode=mode)
 
@@ -1016,7 +1048,217 @@ def main_path(dev):
     return trainer, launches, profile, first
 
 
-# -- 5. the compressed round --------------------------------------------------
+# -- 5. device-mode sampling --------------------------------------------------
+def make_device_trainer(device, agg: str = "auto", compression=None):
+    """The main path's trainer with engine="device", DEVICE_SHIFT and
+    DEVICE_BURST queued beside its arrival and departure."""
+    from repro_torch.core.participation import TRACES
+    from repro_torch.fed import InactivityBurst, TraceShift
+    trainer = make_trainer(make_clients(), device, agg=agg,
+                           compression=compression, engine="device")
+    tau, client, trace = DEVICE_SHIFT
+    start, duration, cohort = DEVICE_BURST
+    trainer._stream_scheduler().push(
+        TraceShift(tau, client_id=client, trace=TRACES[trace]),
+        InactivityBurst(start, duration=duration, client_ids=cohort))
+    return trainer
+
+
+def check_device_events(history) -> None:
+    """Both extra events applied, and the burst's cohort dark (s = 0) for
+    exactly its rounds."""
+    events = "".join(h.event for h in history)
+    tau, client, _ = DEVICE_SHIFT
+    start, duration, cohort = DEVICE_BURST
+    want = [f"trace-shift:{client};",
+            f"burst:{','.join(map(str, cohort))}@{duration};"]
+    if not all(w in events for w in want):
+        raise RuntimeError(f"device mode saw events {events!r}; expected "
+                           f"{want} among them")
+    s = np.stack([h.s for h in history])
+    dark = s[start:start + duration][:, list(cohort)]
+    if dark.any() or not s[start + duration:, list(cohort)].any():
+        raise RuntimeError("the inactivity burst's cohort trained inside "
+                           "its window or never after it")
+
+
+class OneRoundSpans:
+    """A trainer whose run(n) runs n spans of one round each: the cost a
+    span pays once (the draw, the span arguments) paid every round, as at
+    eval_every=1."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+
+    def run(self, n_rounds: int, eval_every: int) -> None:
+        for _ in range(n_rounds):
+            self.trainer.run(1, eval_every=eval_every)
+
+
+def time_draw(trainer) -> tuple:
+    """The device draw of the trainer's next DRAW_SPAN rounds alone
+    (``RoundEngine.sample_span``), its second call under the profiler:
+    the kernels it launched on the card and their summed device time in
+    ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sch = trainer._scheduler
+    eng, st = sch.engine, sch.state
+    active = sch._args(st.next_tau)["active"]
+    eng.sample_span(st.key, st.next_tau, DRAW_SPAN, active)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.sample_span(st.key, st.next_tau, DRAW_SPAN, active)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no kernel of the draw")
+    return len(kernels), sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3
+
+
+def quickstart_trainer(device):
+    """The reference's quickstart on the port: its clients and traces,
+    from the reference's init_small(PRNGKey(0)) params."""
+    from repro_torch.benchmarks.reference import reference_init
+    from repro_torch.configs.paper import SYNTHETIC_LR as cfg
+    from repro_torch.core.participation import TRACES
+    from repro_torch.data import synthetic_federation
+    from repro_torch.fed import Client, FederatedTrainer
+    from repro_torch.models.small import logits_small, make_loss_fn
+    q = QUICKSTART
+    train, test = synthetic_federation(1.0, 1.0, q["n_clients"], seed=0)
+    rng = np.random.default_rng(0)
+    clients = [Client(x=tr[0], y=tr[1], trace=TRACES[rng.integers(0, 8)],
+                      x_test=te[0], y_test=te[1])
+               for tr, te in zip(train, test)]
+
+    def eval_fn(params, x, y):
+        ll = torch.log_softmax(logits_small(params, cfg, x), -1)
+        loss = -ll.gather(1, y[:, None].long()).mean()
+        return float(loss), float((ll.argmax(-1) == y).float().mean())
+
+    return FederatedTrainer(
+        loss_fn=make_loss_fn(cfg), eval_fn=eval_fn,
+        init_params=reference_init(cfg, device), clients=clients,
+        local_epochs=q["local_epochs"], batch_size=q["batch_size"],
+        scheme="C", eta0=q["eta0"], seed=0, engine="device", device=device)
+
+
+def quickstart_on_card(dev) -> None:
+    """The quickstart on the card and on the CPU: equal round records,
+    final accuracies within QUICKSTART_ACC_TOL, rounds/s."""
+    q = QUICKSTART
+    runs = {}
+    for device in (dev, "cpu"):
+        trainer = quickstart_trainer(device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(q["rounds"], eval_every=q["eval_every"])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        runs[device] = (trainer, q["rounds"] / (time.perf_counter() - t0),
+                        trainer.evaluate()[1])
+    (card, card_rps, card_acc), (cpu, cpu_rps, cpu_acc) = runs.values()
+    if not all(same_records(a, b)
+               for a, b in zip(card.history, cpu.history, strict=True)):
+        raise RuntimeError("the quickstart's round records differ between "
+                           "the card and the CPU")
+    log(f"  quickstart (SYNTHETIC(1, 1), {q['n_clients']} clients, logreg, "
+        f"scheme C, E {q['local_epochs']}, B {q['batch_size']}, eta0 "
+        f"{q['eta0']:g}, {q['rounds']} rounds, eval every "
+        f"{q['eval_every']}): final accuracy {card_acc:.4f} on the card, "
+        f"{cpu_acc:.4f} on the CPU (noted for the reference: "
+        f"~{QUICKSTART_NOTED_ACC}); round records equal; "
+        f"{card_rps:.3f} rounds/s on the card (first calls and evals "
+        f"included), {cpu_rps:.3f} on the CPU")
+    log("  accuracy by eval round, card: " + " ".join(
+        f"{h.acc:.3f}" for h in card.history if not math.isnan(h.acc)))
+    if not abs(card_acc - cpu_acc) <= QUICKSTART_ACC_TOL:
+        raise RuntimeError(f"quickstart accuracy {card_acc} on the card, "
+                           f"{cpu_acc} on the CPU")
+
+
+def device_path(dev, plan_trainer, n_leaves: int, plan_profile) -> None:
+    """engine="device" on the main path's federation (DEVICE_SHIFT and
+    DEVICE_BURST added): launch counts, its events, round records equal to
+    the same trainer's on the CPU (the draw bit for bit), params within
+    PARAM_TOL of it, finite eval losses; warm rounds/s in turns with the
+    plan trainer, a profile of two rounds and the draw's own launches and
+    device time; the int8 wire's launches; the reference's quickstart."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    trainer = make_device_trainer(dev)
+    E = trainer.E
+    log(f"device-mode round: engine='device' on the main path's federation, "
+        f"TraceShift {DEVICE_SHIFT} and InactivityBurst {DEVICE_BURST} "
+        f"added, {ROUNDS} rounds")
+    ops.reset_launches()
+    trainer.run(ROUNDS, eval_every=EVAL_EVERY)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    for h in trainer.history:
+        log(f"  tau={h.tau} loss={h.loss:.6f} acc={h.acc:.4f} eta={h.eta:.3e} "
+            f"n_active={h.n_active} event={h.event!r}")
+    want = expected_launches(weighted_agg=ROUNDS,
+                             masked_sgd=ROUNDS * n_leaves * E)
+    log(f"  launches {launches}, expected {want}")
+    if launches != want:
+        raise RuntimeError(f"launch counts {launches} != expected {want}")
+    check_history(trainer.history)
+    check_device_events(trainer.history)
+    if same_run(trainer.history, plan_trainer.history[:ROUNDS]):
+        raise RuntimeError("device mode drew the plan's rounds")
+    t0 = time.perf_counter()
+    plain = make_device_trainer("cpu", agg="flat")
+    plain.run(ROUNDS, eval_every=EVAL_EVERY)
+    plain_s = time.perf_counter() - t0
+    err = compare_with_plain(trainer, plain)
+    log(f"  card against the same trainer on the CPU ({plain_s:.1f} s): "
+        f"every round's s equal bit for bit, equal round records, params "
+        f"max_abs_err {err:.3e} (rtol {PARAM_TOL['rtol']:g}, atol "
+        f"{PARAM_TOL['atol']:g}), eval loss rtol {LOSS_RTOL:g}")
+    del plain
+
+    trainer.run(WARM_ROUNDS, eval_every=NO_EVAL)
+    rounds_per_s_in_turns({"plan": plan_trainer, "device": trainer,
+                           "plan, 1-round spans": OneRoundSpans(plan_trainer),
+                           "device, 1-round spans": OneRoundSpans(trainer)})
+    profile_card(f"{PROFILED_ROUNDS} warm device-mode rounds",
+                 lambda: trainer.run(PROFILED_ROUNDS, eval_every=NO_EVAL),
+                 baseline=plan_profile)
+    draw_launches, draw_ms = time_draw(trainer)
+    log(f"  the draw of a {DRAW_SPAN}-round span alone (sample_span: "
+        f"fold_in on the host, split and two uniforms on the card): "
+        f"{draw_launches} kernels, {draw_ms:.3f} ms of device time summed; "
+        f"per round {draw_launches / DRAW_SPAN:.1f} kernels, "
+        f"{draw_ms / DRAW_SPAN * 1e3:.1f} us")
+
+    int8 = make_device_trainer(dev, compression="int8")
+    ops.reset_launches()
+    int8.run(DEVICE_INT8_ROUNDS, eval_every=EVAL_EVERY)
+    torch.cuda.synchronize()
+    int8_launches = dict(ops.launches)
+    want = expected_launches(
+        weighted_agg_quant=DEVICE_INT8_ROUNDS,
+        masked_sgd=DEVICE_INT8_ROUNDS * n_leaves * E)
+    log(f"  int8 wire, {DEVICE_INT8_ROUNDS} rounds: launches "
+        f"{int8_launches}, expected {want}")
+    if int8_launches != want:
+        raise RuntimeError(f"launch counts {int8_launches} != expected "
+                           f"{want}")
+    if not all(same_records(a, b) for a, b in
+               zip(int8.history, trainer.history[:DEVICE_INT8_ROUNDS],
+                   strict=True)):
+        raise RuntimeError("device mode on the int8 wire drew other rounds "
+                           "than on f32")
+    del int8
+    quickstart_on_card(dev)
+    log(f"  device-mode phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- 6. the compressed round --------------------------------------------------
 def compressed_path(dev, f32_trainer, n_leaves: int, f32_profile):
     """The trainer of the main path on each wire: launch counts, the f32
     run's round records, finite eval losses and wire bytes; profiles of two
@@ -1247,7 +1489,7 @@ def wires_against_cpu(dev, params) -> None:
                                f"step per client")
 
 
-# -- 6. the sharded round -----------------------------------------------------
+# -- 7. the sharded round -----------------------------------------------------
 def same_run(a, b) -> bool:
     """Two histories with equal round records, eval losses and accuracies
     (NaN where no eval ran)."""
@@ -1394,7 +1636,7 @@ def _held(name: str, shape: str, got, want, unsharded, bad, tol) -> float:
     raise RuntimeError(f"the check of {name} does not see the planted fault")
 
 
-# -- 7. the paper's experiments -----------------------------------------------
+# -- 8. the paper's experiments ----------------------------------------------
 def flat_params(params) -> torch.Tensor:
     return torch.cat([params[k].reshape(-1) for k in sorted(params)])
 
@@ -1718,7 +1960,7 @@ def paper_path(dev, n_leaves: int, D: int) -> None:
         f"teacher-forced rows {t3 - t2:.1f} s")
 
 
-# -- 8. LM serving ------------------------------------------------------------
+# -- 9. LM serving -----------------------------------------------------------
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1930,7 +2172,7 @@ def compare_with_chunked(params, cfg, prompts, cache, flash, planted):
     return chunked_s
 
 
-# -- 8b. Mamba2 SSD serving ---------------------------------------------------
+# -- 9b. Mamba2 SSD serving --------------------------------------------------
 def ssm_prefill_logits(params, cfg, tokens, intra):
     """The prefill's last-position logits computed layer by layer from the
     port's building blocks, with ``intra`` as each layer's intra-chunk term
@@ -2152,7 +2394,7 @@ def ssm_serve_path(dev, planted):
     return launches
 
 
-# -- 9. timing ----------------------------------------------------------------
+# -- 10. timing ---------------------------------------------------------------
 def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for `spin` cycles (a few tens
@@ -2646,6 +2888,7 @@ def main() -> None:
     ssd_err = check_ssd_intra_chunk(dev, planted_ssd, planted_ssd_head)
 
     f32_trainer, launches, f32_profile, f32_params = main_path(dev)
+    device_path(dev, f32_trainer, len(leaves), f32_profile)
     int8_trainer, int8_launches, int8_params = compressed_path(
         dev, f32_trainer, len(leaves), f32_profile)
     sharded_launches, sharded_errs, sharded_t = sharded_path(

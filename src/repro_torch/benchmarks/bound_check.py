@@ -82,9 +82,9 @@ def run(rounds=200, seed=0, *, mode="client_parallel", device=None):
         s_dev = torch.from_numpy(s).to(dev)
         coeffs = scheme_coefficients("C", p_dev, s_dev, E)
         eta = min(eta_scale / (tau * E + terms.gamma), 0.5)
-        params = round_fn(params, batches, torch.from_numpy(alpha).to(dev),
-                          coeffs, torch.tensor(eta, dtype=torch.float32,
-                                               device=dev))
+        params, _ = round_fn(
+            params, batches, torch.from_numpy(alpha).to(dev), coeffs,
+            torch.tensor(eta, dtype=torch.float32, device=dev))
         if tau % 10 == 0:
             w = params["w"].cpu().numpy()
             err = float(np.sum((w - w_star) ** 2))

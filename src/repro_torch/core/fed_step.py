@@ -72,14 +72,21 @@ def local_sgd(loss_fn: Callable, params: Params, batches, alpha: torch.Tensor,
     return deltas
 
 
+def _squares(deltas: Params) -> torch.Tensor:
+    """sum over leaves of sum(x^2), leaf by leaf in name order, as the
+    reference sums its pytree's leaves."""
+    return sum(deltas[name].square().sum() for name in sorted(deltas))
+
+
 def fed_round_parallel(loss_fn: Callable, params: Params, batches,
                        alpha: torch.Tensor, coeffs: torch.Tensor,
                        eta: torch.Tensor, *, agg: str = "tree",
                        compression=None,
                        model_kind: Optional[str] = None,
-                       sharding=None) -> Params:
+                       sharding=None, with_metrics: bool = False):
     """batches: dict of (C, E, ...) tensors; alpha: (C, E); coeffs: (C,).
-    Returns the new params, written into ``params`` in place.
+    Returns (new params, metrics); the new params are written into
+    ``params`` in place.
 
     agg selects the aggregation layout: "tree" reduces leaf by leaf in
     plain PyTorch; "flat" flattens the deltas into one (C, D_total) buffer
@@ -95,25 +102,39 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
 
     sharding: optional ``fed.sharding.FedSharding``; batches, alpha and
     coeffs are then this rank's share of the client axis, and the
-    aggregation sums every rank's deltas into the replicated params."""
+    aggregation sums every rank's deltas into the replicated params.
+
+    metrics: ``delta_norm``, the L2 norm of all clients' deltas with
+    ``with_metrics`` (under sharding, of every rank's), else 0.0.  As in
+    the reference, this round takes the norm of the raw deltas, before
+    the wire format; the sequential round takes it after."""
     spec = resolve_compression(compression)
     deltas = local_sgd(loss_fn, params, batches, alpha, eta)
+    metrics = {"delta_norm": 0.0}
+    if with_metrics:
+        # before the aggregation, which may reuse the delta buffers
+        dn2 = _squares(deltas)
+        if sharding is not None:
+            dn2 = sharding.all_reduce(dn2)
+        metrics["delta_norm"] = dn2.sqrt()
     if agg == "flat":
-        return aggregate_deltas_flat(params, deltas, coeffs,
-                                     compression=spec, model_kind=model_kind,
-                                     sharding=sharding)
-    if agg == "tree":
-        if spec.active:
-            return aggregate_deltas_compressed_ref(
-                params, deltas, coeffs, spec, model_kind, sharding=sharding)
-        return aggregate_deltas(params, deltas, coeffs, sharding=sharding)
-    raise ValueError(f"agg must be tree|flat, got {agg!r}")
+        new = aggregate_deltas_flat(params, deltas, coeffs, compression=spec,
+                                    model_kind=model_kind, sharding=sharding)
+    elif agg != "tree":
+        raise ValueError(f"agg must be tree|flat, got {agg!r}")
+    elif spec.active:
+        new = aggregate_deltas_compressed_ref(
+            params, deltas, coeffs, spec, model_kind, sharding=sharding)
+    else:
+        new = aggregate_deltas(params, deltas, coeffs, sharding=sharding)
+    return new, metrics
 
 
 def fed_round_sequential(loss_fn: Callable, params: Params, batches,
                          alpha: torch.Tensor, coeffs: torch.Tensor,
                          eta: torch.Tensor, *, compression=None,
-                         model_kind: Optional[str] = None) -> Params:
+                         model_kind: Optional[str] = None,
+                         with_metrics: bool = False):
     """Same contract as fed_round_parallel, with the clients taken one at a
     time to bound memory: only the global params, the f32 accumulator and
     ONE client's delta exist at once, never a (C, D_total) buffer or a
@@ -128,12 +149,14 @@ def fed_round_sequential(loss_fn: Callable, params: Params, batches,
     So on a quantized wire this round equals the flat client-parallel
     round (``agg="flat"``) bit for bit wherever the local steps of one
     client equal its row of the C-client steps: the flat reduction adds
-    c_k * dequantized row k in the same order.  The reference's
-    ``with_metrics`` (the round's delta norm) is not ported yet (ROADMAP
-    item 2), nor is this mode under sharding (item 6)."""
+    c_k * dequantized row k in the same order.  ``delta_norm`` (with
+    ``with_metrics``) sums each client's squares after the wire's round
+    trip, as the reference does: the parallel round's norm is of the raw
+    deltas.  This mode is not sharded yet (ROADMAP item 6)."""
     spec = resolve_compression(compression)
     acc = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for name, p in params.items()}
+    dn2 = 0.0
     for c in range(alpha.shape[0]):
         delta = local_sgd(loss_fn, params,
                           {k: b[c:c + 1] for k, b in batches.items()},
@@ -141,16 +164,20 @@ def fed_round_sequential(loss_fn: Callable, params: Params, batches,
         delta = {name: d[0] for name, d in delta.items()}
         if spec.active:
             delta = round_trip_tree(delta, spec, model_kind)
+        if with_metrics:
+            dn2 = dn2 + _squares(delta)
         accumulate_delta(acc, delta, coeffs[c])
         del delta
-    return apply_accumulator(params, acc)
+    metrics = {"delta_norm": (torch.as_tensor(dn2, dtype=torch.float32)
+                              .sqrt() if with_metrics else 0.0)}
+    return apply_accumulator(params, acc), metrics
 
 
 def make_fed_round(loss_fn: Callable, mode: str = "client_parallel",
                    agg: str = "tree", compression=None,
                    model_kind: Optional[str] = None) -> Callable:
-    """Returns fed_round(params, batches, alpha, coeffs, eta) -> new
-    params, in ``mode`` client_parallel (with ``agg``) or
+    """Returns fed_round(params, batches, alpha, coeffs, eta) -> (new
+    params, metrics), in ``mode`` client_parallel (with ``agg``) or
     client_sequential."""
     if mode == "client_parallel":
         return functools.partial(fed_round_parallel, loss_fn, agg=agg,

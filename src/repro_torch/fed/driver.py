@@ -5,22 +5,27 @@ round step — per-round participation from device traces (alpha masks),
 Scheme A/B/C coefficients, arrivals with objective shift and fast reboot
 (coefficient boost + LR restart, §4.2), departures with the include /
 exclude decision (§4.3).  Membership is handled by masking (alpha = 0,
-coefficient 0).  Two modes:
+coefficient 0).  Three modes:
 
   engine="plan"   (default) participation and batch indices are sampled
                   with the host numpy RNG in the seed order; every round
                   runs on the device-resident RoundEngine, driven by the
                   StreamScheduler; spans break at events and eval rounds.
+  engine="device" the same engine and scheduler, with participation and
+                  batch indices drawn on the device from the key
+                  ``prng_key(seed)`` (the reference's fast path; the
+                  draws are jax's threefry draws, bit for bit).
   engine="host"   the seed per-round host loop (the reference path of the
                   parity tests).
 
-``mode="client_sequential"`` makes the plan engine train the clients one
-at a time into a streaming accumulator (memory-bounded); the host loop
-stays client-parallel, as the reference's does.  The reference's
-device-mode sampling (``engine="device"``) waits for a later slice.
-``sharding=`` (``fed.sharding.FedSharding``) shards the plan engine's
-client axis over a ``torch.distributed`` group; the host loop stays
-unsharded, as the reference's does.
+The reference's ``chunk_size`` has no counterpart: the port runs a span's
+rounds one after another, with no scan to cut into chunks.
+``mode="client_sequential"`` makes the engine train the clients one at a
+time into a streaming accumulator (memory-bounded); the host loop stays
+client-parallel, as the reference's does.  ``sharding=``
+(``fed.sharding.FedSharding``) shards the engine's client axis over a
+``torch.distributed`` group; the host loop stays unsharded, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from repro_torch.core.compression import resolve_compression
 from repro_torch.core.departures import BoundTerms, should_exclude
 from repro_torch.core.fed_step import fed_round_parallel
 from repro_torch.core.participation import Trace
+from repro_torch.core.prng import prng_key
 from repro_torch.device import resolve_device
 from repro_torch.fed.engine import RoundEngine
 
@@ -82,11 +88,19 @@ class FederatedTrainer:
     deltas (``core/compression.py``); ``model_kind`` (the model's
     ``PaperModelConfig.kind``) fixes a quantized wire's element order, the
     reference's for the CNN too (``core.aggregation.flatten_for_wire``).
-    ``sharding`` (``fed.sharding.make_fed_sharding()``) gives the plan
+    ``sharding`` (``fed.sharding.make_fed_sharding()``) gives the
     engine's client slots to the ranks of a process group; every rank
     runs the trainer and holds the same replicated params and history.
     ``mode`` (``"client_parallel"`` or ``"client_sequential"``) is the
-    plan engine's round (``fed.engine.RoundEngine``).
+    engine's round (``fed.engine.RoundEngine``); ``with_metrics`` makes it
+    compute each round's delta norm, which ``delta_norms`` lists.
+
+    The reference's quickstart on the CPU (on the card, drop ``device``)::
+
+        FederatedTrainer(loss_fn=make_loss_fn(SYNTHETIC_LR), eval_fn=...,
+                         init_params=init_small(SYNTHETIC_LR, device="cpu"),
+                         clients=clients, local_epochs=5, batch_size=20,
+                         eta0=1.0, engine="device", device="cpu").run(50)
     """
 
     def __init__(self, *, loss_fn: Callable,
@@ -99,12 +113,13 @@ class FederatedTrainer:
                  seed: int = 0, engine: str = "plan", agg: str = "auto",
                  compression=None, device=None,
                  model_kind: Optional[str] = None, sharding=None,
-                 mode: str = "client_parallel"):
-        if engine not in ("plan", "host"):
-            raise ValueError(f"engine must be plan|host, got {engine!r}")
+                 mode: str = "client_parallel", with_metrics: bool = False):
+        if engine not in ("plan", "device", "host"):
+            raise ValueError(f"engine must be plan|device|host, got "
+                             f"{engine!r}")
         if engine == "host" and sharding is not None:
             raise ValueError("the host engine is not sharded: pass "
-                             "sharding= with engine='plan'")
+                             "sharding= with engine='plan' or 'device'")
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
@@ -121,12 +136,14 @@ class FederatedTrainer:
         self.bound_terms = bound_terms or BoundTerms(
             D=5.0, V=20.0, gamma=10.0, E=local_epochs)
         self.rng = np.random.default_rng(seed)
+        self._key = prng_key(seed)
         self.compression = resolve_compression(compression)
         self.model_kind = model_kind
         self.engine_mode = engine
         self.agg = agg
         self.sharding = sharding
         self.mode = mode
+        self.with_metrics = with_metrics
         self._scheduler = None
         # membership bookkeeping
         self.objective: set = {i for i, c in enumerate(clients)
@@ -215,7 +232,7 @@ class FederatedTrainer:
             for rb in self.reboots:
                 coeffs[rb.client_idx] *= rb.coeff_multiplier(tau)
             eta = staircase_lr(self.eta0, tau + 1, self.lr_shift_tau)
-            self.params = fed_round_parallel(
+            self.params, _ = fed_round_parallel(
                 self.loss_fn, self.params,
                 {k: torch.from_numpy(v).to(dev) for k, v in batches.items()},
                 torch.from_numpy(alpha).to(dev),
@@ -230,12 +247,18 @@ class FederatedTrainer:
         self._next_tau = start + n_rounds
         return self.history
 
+    @property
+    def delta_norms(self) -> List[float]:
+        """Each engine round's delta norm, with ``with_metrics``."""
+        return [] if self._scheduler is None else \
+            self._scheduler.delta_norms
+
     def _stream_scheduler(self):
-        """The plan engine runs through the StreamScheduler: the clients'
-        active_from/departs_at schedule becomes an event stream once, and
-        the scheduler owns span splitting, weights/reboot/LR recomputation
-        and history.  It shares this trainer's clients, RNG, history,
-        objective and reboots."""
+        """The plan and device engines run through the StreamScheduler:
+        the clients' active_from/departs_at schedule becomes an event
+        stream once, and the scheduler owns span splitting,
+        weights/reboot/LR recomputation and history.  It shares this
+        trainer's clients, RNG, key, history, objective and reboots."""
         if self._scheduler is None:
             from repro_torch.fed.events import Arrival, Departure
             from repro_torch.fed.stream import StreamScheduler
@@ -255,9 +278,11 @@ class FederatedTrainer:
                 local_epochs=self.E, batch_size=self.B, scheme=self.scheme,
                 eta0=self.eta0, agg=self.agg, device=self.device,
                 compression=self.compression, model_kind=self.model_kind,
-                sharding=self.sharding, mode=self.mode)
+                sharding=self.sharding, mode=self.mode,
+                with_metrics=self.with_metrics)
             self._scheduler = StreamScheduler(
                 clients=self.clients, init_params=self.params, engine=engine,
+                mode=self.engine_mode, key=self._key,
                 reboot_boost=self.reboot_boost, fast_reboot=self.fast_reboot,
                 horizon=self.horizon, bound_terms=self.bound_terms,
                 rng=self.rng, evaluate=eval_cb, history=self.history,

@@ -1,39 +1,53 @@
-"""Device-resident multi-round federated engine, plan mode.
+"""Device-resident multi-round federated engine.
 
 Counterpart of ``repro/fed/engine.py``.  Client datasets are padded to a
 common length and live on the device once, as (capacity, Nmax, ...)
-stacks; a round gathers its batches there from host-sampled indices (the
-*plan*: alpha masks and batch indices drawn with the numpy RNG in the
-seed order, so the run is sample-for-sample the reference's).  Scheme
-A/B/C coefficients, the fast-reboot boost (exact O((tau-tau0)^-2) decay at
-every round) and the staircase LR are computed on the device, and the
-round's deltas are reduced with one kernel launch (``agg="flat"``) or leaf
-by leaf (``agg="tree"``), through the wire format of ``compression=``.
+stacks; a round gathers its batches there from batch indices.  The alpha
+masks and batch indices come from one of two samplers:
+
+  * a *plan* (``run_span(plan=...)``): drawn on the host with the numpy RNG
+    in the seed order, so the run is sample-for-sample the reference's
+    plan mode;
+  * the device draw (``run_span(key=...)``): an inverse-CDF draw of each
+    slot's s from its row of the trace law's table (``trace_s_cdf``) and
+    uniform batch indices, with round tau's key ``fold_in(key, tau)``
+    (``device_sample_round``).  ``core.prng`` makes jax's threefry draws
+    bit for bit, so given the same table the alphas and indices are the
+    reference's device mode's, and round tau's draw never depends on how
+    the rounds were cut into spans.
+
+Scheme A/B/C coefficients, the fast-reboot boost (exact O((tau-tau0)^-2)
+decay at every round) and the staircase LR are computed on the device, and
+the round's deltas are reduced with one kernel launch (``agg="flat"``) or
+leaf by leaf (``agg="tree"``), through the wire format of ``compression=``.
 ``mode="client_sequential"`` trains the clients one at a time into a
 streaming accumulator instead (``core.fed_step.fed_round_sequential``).
 
-Capacity slots: slots beyond the founding clients start empty;
-``admit_many`` writes a burst of clients into slots with one transfer per
-buffer, so a membership event never rebuilds the engine.  Device-mode
-sampling (the on-device inverse-CDF draw of the trace law) waits for a
-later slice; this engine takes a plan.
+Capacity slots: slots beyond the founding clients start empty (n = 1, the
+s-law all mass at 0).  ``admit``/``admit_many``/``commit_burst``,
+``evict`` and ``set_trace`` write a slot's data rows, its n and its row of
+the s-law table, so a membership event never rebuilds the engine.
 
 Sharding: with ``sharding=FedSharding(...)`` (``fed/sharding.py``) the
-capacity is padded to whole slots per rank and this rank's buffers hold
-only its own slots.  Every rank takes the same full plan; ``s`` and the
-scheme coefficients (boost included) are computed over the whole
-capacity, and only then is the rank's share of alpha, the batch indices
-and the coefficients cut (``FedSharding.shard``).  Each rank trains its
-own clients and the aggregation ends in one all-reduce, so the params stay
+capacity is padded to whole slots per rank and this rank's data buffers
+hold only its own slots; ``n`` and the s-law table stay whole on every
+rank.  Every rank takes the same full plan, or draws the whole capacity
+from the same key; ``s`` and the scheme coefficients (boost included) are
+computed over the whole capacity, and only then is the rank's share of
+alpha, the batch indices and the coefficients cut (``FedSharding.shard``).
+So a sharded draw equals the unsharded one.  Each rank trains its own
+clients and the aggregation ends in one all-reduce, so the params stay
 replicated and the metrics are the whole federation's on every rank.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.aggregation import scheme_coefficients
 from repro_torch.core.compression import resolve_compression
 from repro_torch.core.fed_step import (fed_round_parallel,
@@ -44,13 +58,103 @@ from repro_torch.fed.task import ArrayTask
 Params = Dict[str, torch.Tensor]
 
 
+@functools.lru_cache(maxsize=1024)
+def trace_cdf_row(trace, E: int) -> np.ndarray:
+    """CDF table of completed epochs s for one trace: (E+1,) f32 with
+    cdf[k] = P(s <= k).  Cached per (trace, E); callers must not mutate
+    the returned array.
+
+    s = round(frac * E) for frac ~ Beta(a, b) mixed with an inactivity
+    atom at 0, so the s-law is a discrete distribution over {0..E} whose
+    CDF is the regularized incomplete beta at the rounding boundaries
+    (k + 1/2)/E, evaluated in float64 (``scipy.special.betainc``) and cast
+    to f32 at the end.  The reference evaluates it with jax in f32, so its
+    table differs from this one by up to ~2e-6; the draw from a given table
+    is bit for bit the same.
+    """
+    from scipy.special import betainc
+
+    ks = np.arange(E + 1)
+    ab = trace._beta_params()
+    if ab is None:
+        # degenerate trace: frac == mean deterministically
+        s0 = int(np.clip(np.round(trace.mean * E), 0, E))
+        base = (ks >= s0).astype(np.float64)
+    else:
+        x = np.clip((ks + 0.5) / E, 0.0, 1.0)
+        base = np.asarray(betainc(ab[0], ab[1], x), np.float64)
+        base[-1] = 1.0
+    q = trace.p_inactive
+    if q > 0:
+        # inactive rounds put an atom at s = 0
+        row = q + (1.0 - q) * base
+    else:
+        # CPU-contention traces never produce zero epochs: the s = 0 mass
+        # moves to s = 1 (Trace.sample_s's maximum(s, 1))
+        row = base.copy()
+        row[0] = 0.0
+    row[-1] = 1.0
+    return row.astype(np.float32)
+
+
+def empty_slot_cdf(E: int) -> np.ndarray:
+    """An empty slot's s-law: all mass at s = 0, so the slot never trains
+    even before the scheduler's active mask is applied."""
+    return np.ones(E + 1, np.float32)
+
+
+def trace_s_cdf(clients, E: int) -> np.ndarray:
+    """Per-client CDF table of completed epochs s: (C, E+1) with
+    cdf[c, k] = P(s_c <= k).  See trace_cdf_row."""
+    return np.stack([trace_cdf_row(cl.trace, E) for cl in clients]) \
+        if clients else np.zeros((0, E + 1), np.float32)
+
+
+def device_sample_round(key, active, n, s_cdf, E: int, B: int):
+    """The device draw of participation and batch indices for one round,
+    as the reference's ``device_sample_round``: ``ks, kb = split(key)``;
+    s = #{k : u > cdf[k]} for u = uniform(ks, (C,)), times ``active``;
+    alpha = (arange(E) < s); idx = min(int32(uniform(kb, (C, E, B)) * n),
+    n - 1).
+
+    key: (..., 2) int64 words, a batch of keys (the engine passes a span's
+    per-round keys at once); active: (C,) 0/1 f32; n: (C,) int32 dataset
+    sizes; s_cdf: (C, E+1) f32 (trace_s_cdf).  C is the whole capacity:
+    the draws are counted over it, so another C draws other values.
+    Returns alpha (..., C, E) f32 and idx (..., C, E, B) int32.
+    """
+    C = n.shape[0]
+    keys = prng.split(key)
+    u = prng.uniform(keys[..., 0, :], (C,))
+    s = (u[..., None] > s_cdf).sum(-1).to(torch.float32) * active
+    alpha = (torch.arange(E, dtype=torch.float32, device=s.device)
+             < s[..., None]).to(torch.float32)
+    ub = prng.uniform(keys[..., 1, :], (C, E, B))
+    idx = torch.minimum(
+        (ub * n.to(torch.float32)[:, None, None]).to(torch.int32),
+        n[:, None, None] - 1)
+    return alpha, idx
+
+
+def device_sample_span(key, R: int, active, n, s_cdf, E: int, B: int, *,
+                       tau0: int = 0):
+    """R rounds of device_sample_round under the per-round keys
+    ``fold_in(key, tau)``, tau = tau0 .. tau0+R-1: alphas (R, C, E) f32,
+    idxs (R, C, E, B) int32.  The R keys are derived on the host in one
+    pass and go to n's device in one copy."""
+    taus = torch.arange(tau0, tau0 + R, dtype=torch.int64)
+    keys = prng.fold_in(key.cpu(), taus).to(n.device)
+    return device_sample_round(keys, active, n, s_cdf, E, B)
+
+
 class RoundEngine:
     """Runs spans of federated rounds on device-resident client data.
 
     The model layer is a ClientTask (fed/task.py); ``loss_fn=`` wraps into
-    the equivalent ArrayTask.  Membership, data weights p, the LR-restart
-    round and reboot state are constant within a span (the scheduler
-    splits spans at every event) and enter ``run_span`` as arguments.
+    the equivalent ArrayTask.  Membership, data weights p, the active
+    mask, the LR-restart round and reboot state are constant within a span
+    (the scheduler splits spans at every event) and enter ``run_span`` as
+    arguments.
 
     ``agg="auto"`` picks ``"flat"``, the kernel path, on CUDA, and
     ``"tree"`` on the CPU, where the kernel's plain version loops over the
@@ -64,7 +168,8 @@ class RoundEngine:
     ``mode`` is ``"client_parallel"`` (all clients as one batch, then one
     reduction of their (C, D) deltas) or ``"client_sequential"`` (one
     client at a time into an f32 accumulator, memory-bounded; ``agg`` does
-    not apply to it).
+    not apply to it).  ``with_metrics`` adds each round's delta norm to
+    the span's metrics (``core.fed_step``); without it the norm is 0.
     """
 
     def __init__(self, *, clients, local_epochs: int, batch_size: int,
@@ -73,7 +178,8 @@ class RoundEngine:
                  capacity: Optional[int] = None,
                  max_samples: Optional[int] = None, device=None,
                  compression=None, model_kind: Optional[str] = None,
-                 sharding=None, mode: str = "client_parallel"):
+                 sharding=None, mode: str = "client_parallel",
+                 with_metrics: bool = False):
         if mode not in ("client_parallel", "client_sequential"):
             raise ValueError(f"mode must be client_parallel|"
                              f"client_sequential, got {mode!r}")
@@ -82,6 +188,7 @@ class RoundEngine:
                              "yet (ROADMAP item 6): pass sharding= with "
                              "mode='client_parallel'")
         self.mode = mode
+        self.with_metrics = with_metrics
         if (task is None) == (loss_fn is None):
             raise ValueError("pass exactly one of task= or loss_fn=")
         if task is None:
@@ -138,10 +245,22 @@ class RoundEngine:
             if i in self.local_slots:
                 for name, arr in self._client_rows(c).items():
                     stacks[name][i - lo, :c.n] = arr
+        # empty slots keep n = 1, so the draw's idx = min(u n, n - 1) stays
+        # a valid gather (their alpha and coefficient are 0 regardless);
+        # n and the s-law table cover the whole capacity on every rank:
+        # the device draw is counted over all of it
+        n = np.ones(capacity, np.int32)
+        n[:C] = [c.n for c in clients]
+        cdf = np.tile(empty_slot_cdf(self.E), (capacity, 1))
+        cdf[:C] = trace_s_cdf(clients, self.E)
         # datasets move host->device exactly once, here; under sharding
         # each rank holds only the rows of the slots it owns
         self.data = {name: torch.from_numpy(buf).to(self.device)
                      for name, buf in stacks.items()}
+        self.n = torch.from_numpy(n).to(self.device)
+        self.s_cdf = torch.from_numpy(cdf).to(self.device)
+        self._empty_cdf = torch.from_numpy(empty_slot_cdf(self.E)).to(
+            self.device)
         self._slots = torch.arange(n_local, device=self.device)[:, None,
                                                                 None]
 
@@ -161,44 +280,102 @@ class RoundEngine:
         if not 0 <= slot < self.capacity:
             raise IndexError(f"slot {slot} out of range [0, {self.capacity})")
 
+    def _check_burst(self, slots) -> None:
+        for slot in slots:
+            self._check_slot(slot)
+        if len(set(slots)) != len(slots):
+            # one slot written twice could mix two clients' rows
+            raise ValueError(f"admit_many got duplicate slots: {slots}")
+
     # -- capacity-slot lifecycle ----------------------------------------------
+    def admit(self, slot: int, client) -> None:
+        """Write one client into a slot: a burst of one."""
+        self.admit_many([(slot, client)])
+
     def admit_many(self, assignments) -> None:
-        """Write a burst of (slot, client) pairs into their slots: the rows
-        are padded and stacked on the host, then go up as one transfer and
-        one indexed write per buffer.  Under sharding every rank checks the
-        whole burst and writes only the slots it owns, at their local
-        rows."""
+        """Write a burst of (slot, client) pairs into their slots: the
+        data rows are padded and stacked on the host, go up as one
+        transfer per buffer (``put_burst``) and land with n and the
+        clients' s-law rows in one ``commit_burst``.  Under sharding every
+        rank checks the whole burst, stages only the rows of the slots it
+        owns, and writes n and the s-law of every slot."""
         assignments = list(assignments)
         if not assignments:
             return
         slots = [slot for slot, _ in assignments]
-        for slot in slots:
-            self._check_slot(slot)
-        if len(set(slots)) != len(slots):
-            raise ValueError(f"admit_many got duplicate slots: {slots}")
         for _, c in assignments:
             if c.n > self.nmax:
                 raise ValueError(
                     f"client has {c.n} samples > slot capacity {self.nmax}; "
                     f"build the engine with max_samples >= {c.n}")
-        assignments = [(slot - self.local_slots.start, c)
-                       for slot, c in assignments if slot in self.local_slots]
-        if not assignments:
+        local = [j for j, slot in enumerate(slots)
+                 if slot in self.local_slots]
+        stacks = {name: np.zeros((len(local), self.nmax) + spec.shape,
+                                 spec.dtype)
+                  for name, spec in self.task.buffers.items()}
+        idx = [0] * len(slots)      # rows of slots this rank does not own
+        for row, j in enumerate(local):     # are never read
+            c = assignments[j][1]
+            for name, arr in self._client_rows(c).items():
+                stacks[name][row, :c.n] = arr
+            idx[j] = row
+        self.commit_burst(
+            self.put_burst(stacks), slots=slots,
+            ns=[c.n for _, c in assignments],
+            cdfs=[trace_cdf_row(c.trace, self.E) for _, c in assignments],
+            idx=idx)
+
+    def put_burst(self, stacks) -> dict:
+        """Move pre-stacked (k, Nmax, *spec.shape) host buffers to the
+        device, one transfer per buffer.  Pure transfer, no engine
+        mutation."""
+        return {name: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device) for name, a in stacks.items()}
+
+    def commit_burst(self, dev_rows, *, slots, ns, cdfs, idx=None) -> None:
+        """Land a staged burst: every data buffer's rows, n and the s-law
+        rows of ``slots``.
+
+        dev_rows: ``put_burst`` output, (K, Nmax, *spec.shape) device
+        stacks; slots/ns/cdfs: per written slot, in slot order; idx: the
+        row of dev_rows for each written slot (default: the identity), so
+        a staged stack can be committed as a subset or reordered.  n and
+        the s-law come from the caller (the live client), never from the
+        stack.  Under sharding only the data rows of this rank's slots are
+        written (and read); n and the s-law of every slot."""
+        slots = list(slots)
+        if not slots:
             return
-        index = torch.tensor([row for row, _ in assignments],
-                             device=self.device)
-        for name, spec in self.task.buffers.items():
-            rows = np.zeros((len(assignments), self.nmax) + spec.shape,
-                            spec.dtype)
-            for j, (_, c) in enumerate(assignments):
-                rows[j, :c.n] = self._client_rows(c)[name]
-            self.data[name][index] = torch.from_numpy(rows).to(self.device)
+        self._check_burst(slots)
+        idx = list(range(len(slots))) if idx is None else list(idx)
+        dev = self.device
+        at = torch.tensor(slots, device=dev)
+        self.n[at] = torch.tensor(list(ns), dtype=torch.int32, device=dev)
+        self.s_cdf[at] = torch.from_numpy(np.stack(cdfs)).to(dev)
+        lo = self.local_slots.start
+        local = [(idx[j], slot - lo) for j, slot in enumerate(slots)
+                 if slot in self.local_slots]
+        if not local:
+            return
+        rows = torch.tensor([r for r, _ in local], device=dev)
+        at = torch.tensor([s for _, s in local], device=dev)
+        for name, buf in self.data.items():
+            buf[at] = dev_rows[name][rows]
 
     def evict(self, slot: int) -> None:
-        """Free a slot.  Its data stays on the device, unreachable (alpha =
-        0 and coefficient 0: the plan and the weights skip a free slot)
-        until the next admit overwrites it."""
+        """Free a slot: n drops to 1 (keeps gathers valid) and its s-law
+        collapses to the empty-slot atom at 0.  Its data stays on the
+        device, unreachable (alpha = 0, coefficient 0), until the next
+        admit overwrites it."""
         self._check_slot(slot)
+        self.n[slot] = 1
+        self.s_cdf[slot] = self._empty_cdf
+
+    def set_trace(self, slot: int, trace) -> None:
+        """Swap the availability law of an occupied slot (TraceShift)."""
+        self._check_slot(slot)
+        self.s_cdf[slot] = torch.from_numpy(
+            trace_cdf_row(trace, self.E)).to(self.device)
 
     # -- one round ------------------------------------------------------------
     def _round_core(self, params, alpha, idx, tau, p, rb_tau0, rb_boost,
@@ -218,53 +395,85 @@ class RoundEngine:
         batches = self.task.make_batch(
             {name: buf[self._slots, idx] for name, buf in self.data.items()})
         if self.mode == "client_sequential":
-            params = fed_round_sequential(self.loss_fn, params, batches,
-                                          alpha, coeffs, eta,
-                                          compression=self.compression,
-                                          model_kind=self.model_kind)
+            params, m = fed_round_sequential(
+                self.loss_fn, params, batches, alpha, coeffs, eta,
+                compression=self.compression, model_kind=self.model_kind,
+                with_metrics=self.with_metrics)
         else:
-            params = fed_round_parallel(self.loss_fn, params, batches, alpha,
-                                        coeffs, eta, agg=self.agg,
-                                        compression=self.compression,
-                                        model_kind=self.model_kind,
-                                        sharding=self.sharding)
-        return params, s, eta
+            params, m = fed_round_parallel(
+                self.loss_fn, params, batches, alpha, coeffs, eta,
+                agg=self.agg, compression=self.compression,
+                model_kind=self.model_kind, sharding=self.sharding,
+                with_metrics=self.with_metrics)
+        return params, s, eta, m["delta_norm"]
 
     # -- host entry point -----------------------------------------------------
+    def sample_span(self, key, tau_start: int, n_rounds: int, active):
+        """The device draw of a span: alphas (R, capacity, E) f32 and batch
+        indices (R, capacity, E, B) int64, round tau from ``fold_in(key,
+        tau)`` (``device_sample_span``) over the whole capacity, before
+        any sharding cut."""
+        active = torch.as_tensor(active, dtype=torch.float32,
+                                 device=self.device)
+        alphas, idxs = device_sample_span(
+            torch.as_tensor(key, dtype=torch.int64), n_rounds, active,
+            self.n, self.s_cdf, self.E, self.B, tau0=tau_start)
+        return alphas, idxs.long()
+
     def run_span(self, params: Params, tau_start: int, n_rounds: int, *,
-                 plan, p, lr_shift_tau: int, reboot_tau0, reboot_boost):
+                 p, lr_shift_tau: int, reboot_tau0, reboot_boost,
+                 plan=None, key=None, active=None):
         """Run n_rounds starting at tau_start with fixed membership.
 
-        plan: (alphas (R, capacity, E), idxs (R, capacity, E, B)) sampled on
-        the host.  Under sharding only this rank's slots of idxs go up;
-        alphas go up whole, for s over the whole capacity.  params are
-        updated in place.  Returns (params, metrics)
-        with the metrics still on the device, stacked over rounds:
-        s (R, capacity) and eta (R,), so the host does not wait for the
-        span; the caller reads them back when it needs them.
+        Exactly one of ``plan`` or ``key`` is given.  plan: (alphas (R,
+        capacity, E), idxs (R, capacity, E, B)) sampled on the host; key:
+        a (2,) key (``core.prng``) for the device draw, with ``active``
+        the (capacity,) 0/1 mask of slots that train this span (a plan
+        already carries it).  Under sharding only this rank's slots of the
+        batch indices are used; alpha goes whole into the round, for s
+        over the whole capacity.  params are updated in place.  Returns
+        (params, metrics) with the metrics still on the device, stacked
+        over rounds: s (R, capacity), eta (R,) and delta_norm (R,), so the
+        host does not wait for the span; the caller reads them back when
+        it needs them.
         """
+        if (plan is None) == (key is None):
+            raise ValueError("pass exactly one of plan= or key=")
         dev = self.device
+        if n_rounds <= 0:
+            return params, {"s": torch.zeros((0, self.capacity), device=dev),
+                            "eta": torch.zeros(0, device=dev),
+                            "delta_norm": torch.zeros(0, device=dev)}
         p = torch.as_tensor(p, dtype=torch.float32, device=dev)
         rb_tau0 = torch.as_tensor(reboot_tau0, dtype=torch.int32, device=dev)
         rb_boost = torch.as_tensor(reboot_boost, dtype=torch.float32,
                                    device=dev)
-        alphas = torch.as_tensor(plan[0], dtype=torch.float32, device=dev)
-        idxs = np.asarray(plan[1])
-        if self.sharding is not None:
-            idxs = self.sharding.shard(idxs.swapaxes(0, 1)).swapaxes(0, 1)
-        idxs = torch.as_tensor(idxs, dtype=torch.int64, device=dev)
+        if plan is not None:
+            alphas = torch.as_tensor(plan[0], dtype=torch.float32, device=dev)
+            idxs = np.asarray(plan[1])
+            if self.sharding is not None:
+                idxs = self.sharding.shard(idxs.swapaxes(0, 1)).swapaxes(0, 1)
+            idxs = torch.as_tensor(idxs, dtype=torch.int64, device=dev)
+        else:
+            if active is None:
+                raise ValueError("the device draw needs active=")
+            alphas, idxs = self.sample_span(key, tau_start, n_rounds, active)
+            if self.sharding is not None:
+                idxs = self.sharding.shard(idxs.transpose(0, 1)).transpose(
+                    0, 1)
         # round indices are made on the device: a host scalar per round
         # would be a blocking copy per round
         taus = tau_start + torch.arange(n_rounds, dtype=torch.int32,
                                         device=dev)
-        ss, etas = [], []
+        ss, etas, norms = [], [], []
         for r in range(n_rounds):
-            params, s, eta = self._round_core(
+            params, s, eta, dn = self._round_core(
                 params, alphas[r], idxs[r], taus[r], p, rb_tau0, rb_boost,
                 lr_shift_tau)
             ss.append(s)
             etas.append(eta)
-        if not ss:
-            return params, {"s": torch.zeros((0, self.capacity), device=dev),
-                            "eta": torch.zeros(0, device=dev)}
-        return params, {"s": torch.stack(ss), "eta": torch.stack(etas)}
+            norms.append(dn)
+        return params, {"s": torch.stack(ss), "eta": torch.stack(etas),
+                        "delta_norm": (torch.stack(norms) if self.with_metrics
+                                       else torch.zeros(n_rounds,
+                                                        device=dev))}

@@ -1,10 +1,12 @@
 """FedState: the federation control plane as plain host data.
 
-Counterpart of ``repro/fed/state.py`` for arrivals and departures: the slot
-registry, objective/joined/departed membership, the reboot arrays, the
-LR-shift round, the pending event queue and the numpy RNG.  Applying an
-event mutates host bookkeeping only and returns the *engine actions*
-(slot admits/evicts) it implies; the StreamScheduler executes them.
+Counterpart of ``repro/fed/state.py``: the slot registry,
+objective/joined/departed/masked membership, the reboot arrays, the
+LR-shift round, the pending event queue, the numpy RNG and the device
+draw's key.  Applying an event mutates host bookkeeping only and returns
+the *engine actions* (slot admits, evicts and trace writes) it implies;
+the StreamScheduler executes them.  ``to_dict``/``from_dict`` wait for the
+checkpoint slice.
 
 Invariants (the reference's):
   * client id == index into ``clients``; founding clients occupy slots
@@ -12,22 +14,28 @@ Invariants (the reference's):
   * the queue is a heap keyed by (tau, push order);
   * ``sample_plan`` consumes the RNG per occupied active slot in slot
     order, the seed loop's draw order, so a seed gives both packages the
-    same participation and batch stream.
+    same participation and batch stream;
+  * the key (``core.prng``, the reference's jax key words) is a base key,
+    never split: round tau's device draw folds tau into it, so the sample
+    stream does not depend on how training is cut into run() calls.
 """
 from __future__ import annotations
 
 import heapq
+from dataclasses import replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.arrivals import RebootState
 from repro_torch.core.departures import BoundTerms, should_exclude
+from repro_torch.core.prng import prng_key
 from repro_torch.fed.driver import Client
-from repro_torch.fed.events import Arrival, Departure, ParticipationEvent
+from repro_torch.fed.events import (Arrival, Departure, InactivityBurst,
+                                    ParticipationEvent, TraceShift)
 
 # engine actions a transition emits: ("admit", slot, client_id),
-# ("evict", slot)
+# ("evict", slot), ("set_trace", slot, trace)
 SlotAction = tuple
 
 
@@ -40,6 +48,7 @@ class FedState:
                  bound_terms: Optional[BoundTerms] = None,
                  local_epochs: int = 5, seed: int = 0,
                  rng: Optional[np.random.Generator] = None,
+                 key=None,
                  objective: Optional[set] = None,
                  reboots: Optional[List[RebootState]] = None):
         self.clients: List[Client] = clients
@@ -50,6 +59,7 @@ class FedState:
         self.bound_terms = bound_terms or BoundTerms(
             D=5.0, V=20.0, gamma=10.0, E=local_epochs)
         self.rng = rng if rng is not None else np.random.default_rng(seed)
+        self.key = key if key is not None else prng_key(seed)
 
         C = len(self.clients)
         self.slot_of: Dict[int, int] = {i: i for i in range(C)}
@@ -61,6 +71,8 @@ class FedState:
                                else set(range(C)))
         self.joined: Dict[int, int] = {i: 0 for i in self.objective}
         self.departed: set = set()
+        self.mask_until: Dict[int, int] = {}
+        self.expiry_taus: set = set()
         self.lr_shift_tau = 0
         self.rb_tau0 = np.zeros(capacity, np.int32)
         self.rb_boost = np.ones(capacity, np.float32)
@@ -92,7 +104,8 @@ class FedState:
     # -- membership ----------------------------------------------------------
     def active(self, i: int, tau: int) -> bool:
         return (i in self.objective and i not in self.departed
-                and self.joined.get(i, tau + 1) <= tau)
+                and self.joined.get(i, tau + 1) <= tau
+                and self.mask_until.get(i, tau) <= tau)
 
     def register(self, client: Client) -> int:
         self.clients.append(client)
@@ -176,7 +189,37 @@ class FedState:
                 return f"departure-exclude:{i};", actions
             return f"departure-include:{i};", actions
 
+        if isinstance(e, TraceShift):
+            i = e.client_id
+            if not 0 <= i < len(self.clients):
+                return "", actions              # unknown device: no-op
+            # copy-on-shift, not in place: the registered Client may be
+            # aliased by the Arrival that delivered it, which must keep
+            # its law.  Arrays are shared; plan-mode draws follow the new
+            # object
+            self.clients[i] = replace(self.clients[i], trace=e.trace)
+            slot = self.slot_of.get(i)
+            if slot is not None:
+                actions.append(("set_trace", slot, e.trace))
+            return f"trace-shift:{i};", actions
+
+        if isinstance(e, InactivityBurst):
+            until = tau + e.duration
+            for i in e.client_ids:
+                self.mask_until[i] = max(self.mask_until.get(i, 0), until)
+            self.expiry_taus.add(until)
+            ids = ",".join(str(i) for i in e.client_ids)
+            return f"burst:{ids}@{e.duration};", actions
+
         raise TypeError(f"unknown participation event {e!r}")
+
+    def expire(self, tau: int) -> bool:
+        """Retire a burst expiry landing on tau; True when a masked cohort
+        resumed (the span's active mask is stale)."""
+        if tau in self.expiry_taus:
+            self.expiry_taus.discard(tau)
+            return True
+        return False
 
     # -- span arguments (host-side, numpy) ------------------------------------
     def data_weights(self) -> np.ndarray:
@@ -191,8 +234,16 @@ class FedState:
                 p[slot] = self.clients[i].n / total
         return p
 
-    def span_args(self) -> dict:
+    def span_args(self, tau: int) -> dict:
+        """The span's per-slot columns at round tau: data weights p, the
+        0/1 mask of slots that train (``active``), the LR-shift round and
+        the reboot arrays."""
+        active = np.zeros(self.capacity, np.float32)
+        for slot, i in self.client_at.items():
+            if self.active(i, tau):
+                active[slot] = 1.0
         return dict(p=self.data_weights().astype(np.float32),
+                    active=active,
                     lr_shift_tau=self.lr_shift_tau,
                     reboot_tau0=self.rb_tau0.copy(),
                     reboot_boost=self.rb_boost.copy())
@@ -204,6 +255,9 @@ class FedState:
         end = stop
         if self.queue:
             end = min(end, max(self.queue[0][0], tau + 1))
+        for t in self.expiry_taus:
+            if tau < t < end:
+                end = t
         if ev:
             return tau + 1      # event round: evaluate right after it
         next_eval = tau + ((-tau) % eval_every)

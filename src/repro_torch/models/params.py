@@ -4,7 +4,8 @@ for the dense and SSM families.
 Per-layer parameters are stacked with a leading (n_layers,) dim, as the
 reference stacks them for ``lax.scan``; head-structured projections are
 stored flattened, ``(d, H*hd)``, for ``x @ W``.  The reference's
-``jax.random`` values cannot be reproduced, so the port draws its own with
+``jax.random`` normals are not reproduced (``core.prng`` makes jax's
+uniform bits, not XLA's f32 inverse-erf), so the port draws its own with
 the reference's scales (normal * 0.02; zeros for norms and biases), on the
 target device from a seeded ``torch.Generator``, straight into
 ``cfg.dtype``: a 15 B-parameter model is never materialised on the host.

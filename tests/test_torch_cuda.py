@@ -464,3 +464,25 @@ def test_sharded_all_reduce_refuses_a_cuda_tensor_on_gloo(card, tmp_path):
             make_fed_sharding().all_reduce(torch.ones(3, device=card))
     finally:
         dist.destroy_process_group()
+
+
+def test_device_draw_on_the_card_equals_the_cpu(card):
+    """core.prng and device_sample_round run the same integer passes, one
+    f32 multiply and a truncation on both devices: a span's draws on the
+    card equal the CPU's bit for bit, at the EMNIST main path's shape."""
+    from repro_torch.core import prng
+    from repro_torch.fed.engine import device_sample_round
+    C, E, B = 62, 5, 10
+    gen = torch.Generator().manual_seed(0)
+    n = torch.randint(1, 400, (C,), generator=gen, dtype=torch.int32)
+    cdf = torch.sort(torch.rand(C, E + 1, generator=gen), dim=1).values
+    cdf[:, -1] = 1.0
+    active = (torch.rand(C, generator=gen) < 0.9).float()
+    keys = prng.fold_in(prng.prng_key(0), torch.arange(10))
+    want = device_sample_round(keys, active, n, cdf, E, B)
+    got = device_sample_round(keys.to(card), active.to(card), n.to(card),
+                              cdf.to(card), E, B)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    assert torch.equal(prng.uniform(keys.to(card), (C, E, B)).cpu(),
+                       prng.uniform(keys, (C, E, B)))

@@ -22,6 +22,7 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
+             "repro_torch.core.prng",
              "repro_torch.data.synthetic",
              "repro_torch.benchmarks.paper_tables",
              "repro_torch.benchmarks.bound_check",

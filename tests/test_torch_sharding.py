@@ -28,6 +28,12 @@ The ranks import nothing of JAX: the reference runs in this process.
   the unsharded one (``_summation_bound``).
 - World size 1 is bit-identical to the unsharded trainer, flat and tree,
   f32 and int8.
+- The same scenario drawn on the device (``mode="device"``, capacity 8 on
+  every side, the reference's s-law table): at 4 ranks the round records
+  equal the unsharded port run's and the reference's bit for bit (every
+  rank draws the whole capacity, then cuts its share), and each round,
+  started from the reference's params, lands within PARAM_TOL of the
+  reference's single-device round.
 """
 import datetime
 import pickle
@@ -69,6 +75,10 @@ SCENARIOS = {"flat": ("flat", "C"), "tree": ("tree", "C"),
              "flat-A": ("flat", "A")}
 WIRES = ("int8", "int8-topk")
 CNN_CLIENTS = 8                 # 2 per rank
+# the device-mode case: (agg, scheme), drawn over the padded capacity, so
+# the unsharded runs draw over the same slots as the ranks
+DEVICE_CASE = ("flat", "C")
+DEVICE_CAPACITY = 8
 U = 2.0 ** -24                  # f32 unit roundoff
 
 
@@ -88,11 +98,20 @@ def inputs():
     and the reference's initial params."""
     import jax
     from repro.configs.paper import SYNTHETIC_LR
+    from repro.core.participation import TRACES
+    from repro.fed.engine import trace_cdf_row
     from repro.models.small import init_small
     return dict(
         clients=_client_arrays(6, 0), newcomer=_client_arrays(1, 99)[0],
         init={k: np.asarray(v) for k, v in
-              init_small(jax.random.PRNGKey(0), SYNTHETIC_LR).items()})
+              init_small(jax.random.PRNGKey(0), SYNTHETIC_LR).items()},
+        cdf_rows={t.name: trace_cdf_row(t, 5) for t in TRACES})
+
+
+def _reference_table(rows):
+    """The port's trace_cdf_row giving the reference's rows (E = 5): the
+    two tables differ by up to 2e-6 (tests/test_torch_device_mode.py)."""
+    return lambda trace, E: rows[trace.name]
 
 
 def _port_client(a, **kw):
@@ -120,13 +139,16 @@ def reference(inputs):
                          x_test=a["x_test"], y_test=a["y_test"])
 
     out = {}
-    for case, (agg, scheme) in SCENARIOS.items():
+    cases = {case: (agg, scheme, "plan", CAPACITY)
+             for case, (agg, scheme) in SCENARIOS.items()}
+    cases["device"] = DEVICE_CASE + ("device", DEVICE_CAPACITY)
+    for case, (agg, scheme, mode, capacity) in cases.items():
         sch = RefScheduler(
             clients=[client(a) for a in inputs["clients"]],
             init_params={k: jnp.asarray(v) for k, v in inputs["init"].items()},
-            loss_fn=make_loss_fn(SYNTHETIC_LR), capacity=CAPACITY,
+            loss_fn=make_loss_fn(SYNTHETIC_LR), capacity=capacity,
             max_samples=60, local_epochs=5, batch_size=10, scheme=scheme,
-            eta0=0.5, seed=0, mode="plan", agg=agg, interpret=True,
+            eta0=0.5, seed=0, mode=mode, agg=agg, interpret=True,
             events=[RefArrival(3, client=client(inputs["newcomer"])),
                     RefDeparture(6, client_id=2, policy="exclude")])
         params = [inputs["init"]]
@@ -164,16 +186,20 @@ def _kernels(fs):
 def _scenario(fs, inputs, case, teacher=None):
     """The reference scenario on the port's StreamScheduler, sharded by
     ``fs``; with ``teacher`` (params before each round), every round
-    starts from those params."""
-    agg, scheme = SCENARIOS[case]
+    starts from those params.  Case "device" draws on the device."""
+    if case == "device":
+        (agg, scheme), mode, capacity = DEVICE_CASE, "device", \
+            DEVICE_CAPACITY
+    else:
+        (agg, scheme), mode, capacity = SCENARIOS[case], "plan", CAPACITY
     clients = [_port_client(a) for a in inputs["clients"]]
     engine = RoundEngine(
         loss_fn=port_loss_fn(PORT_LR), clients=clients, local_epochs=5,
-        batch_size=10, scheme=scheme, eta0=0.5, agg=agg, capacity=CAPACITY,
+        batch_size=10, scheme=scheme, eta0=0.5, agg=agg, capacity=capacity,
         max_samples=60, device="cpu", sharding=fs)
     sch = StreamScheduler(
         clients=clients, init_params=from_jax(inputs["init"], PORT_LR, "cpu"),
-        engine=engine, seed=0,
+        engine=engine, mode=mode, seed=0,
         events=[Arrival(3, client=_port_client(inputs["newcomer"])),
                 Departure(6, client_id=2, policy="exclude")])
     params = []
@@ -236,6 +262,8 @@ def _rank_main(rank, world, init_file, out_dir, inputs, teachers):
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=120))
     try:
+        from repro_torch.fed import engine
+        engine.trace_cdf_row = _reference_table(inputs["cdf_rows"])
         fs = make_fed_sharding()
         out = dict(n_shards=fs.n_shards, rank=fs.rank,
                    slots=fs.slots(fs.pad_capacity(CAPACITY)),
@@ -244,6 +272,7 @@ def _rank_main(rank, world, init_file, out_dir, inputs, teachers):
             out[case] = _scenario(fs, inputs, case)
             out[case + "-teacher"] = _scenario(fs, inputs, case,
                                                teachers[case])
+        out["device"] = _scenario(fs, inputs, "device", teachers["device"])
         with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -254,7 +283,8 @@ def _rank_main(rank, world, init_file, out_dir, inputs, teachers):
 def ranks(inputs, reference, tmp_path_factory):
     """Start the 4 gloo ranks once; their results, by rank."""
     tmp = tmp_path_factory.mktemp("ranks")
-    teachers = {case: reference[case][0] for case in SCENARIOS}
+    teachers = {case: reference[case][0]
+                for case in (*SCENARIOS, "device")}
     mp.spawn(_rank_main, nprocs=N_RANKS, join=True,
              args=(N_RANKS, str(tmp / "pg"), str(tmp), inputs, teachers))
     out = []
@@ -386,6 +416,36 @@ def test_four_ranks_teacher_forced_within_param_tol(ranks, reference, case):
         for k in w:
             np.testing.assert_allclose(g[k], w[k], err_msg=f"{k} round {r}",
                                        **PARAM_TOL)
+
+
+def test_four_ranks_device_mode_draw_the_unsharded_rounds(ranks, reference,
+                                                         inputs, monkeypatch):
+    """Device mode at 4 ranks: the round records bit-identical to the
+    unsharded port run's and to the reference's, on every rank; each
+    round, started from the reference's params, within PARAM_TOL of the
+    reference's single-device round."""
+    from repro_torch.fed import engine
+    monkeypatch.setattr(engine, "trace_cdf_row",
+                        _reference_table(inputs["cdf_rows"]))
+    want_params, want_history = reference["device"]
+    plain = _scenario(None, inputs, "device", want_params)
+    assert plain["capacity"] == DEVICE_CAPACITY
+    for (tau, eta, n_active, event, s), w in zip(plain["history"],
+                                                 want_history, strict=True):
+        assert (tau, eta, n_active, event) == (w.tau, w.eta, w.n_active,
+                                               w.event)
+        np.testing.assert_array_equal(s, np.asarray(w.s))
+    assert "".join(h[3] for h in plain["history"]) == \
+        "arrival:6;departure-exclude:2;"
+    for r in ranks:
+        got = r["device"]
+        for a, b in zip(got["history"], plain["history"], strict=True):
+            assert a[:4] == b[:4]
+            np.testing.assert_array_equal(a[4], b[4])
+        for i, (g, w) in enumerate(zip(got["params"], want_params[1:])):
+            for k in w:
+                np.testing.assert_allclose(g[k], w[k], err_msg=f"{k} {i}",
+                                           **PARAM_TOL)
 
 
 # -- the CNN's int8 wires at 4 ranks ------------------------------------------

@@ -151,8 +151,9 @@ def _port_distance(scheme, A_list, c_list, w_star, s_pattern, mode,
     p = make_problem(0)[2]
     coeffs = port_agg.scheme_coefficients(scheme, p, s_pattern, E)
     for tau in range(rounds):
-        params = round_fn(params, batches, alpha, coeffs,
-                          torch.tensor(eta0 / (tau + 1), dtype=torch.float32))
+        params, _ = round_fn(params, batches, alpha, coeffs,
+                             torch.tensor(eta0 / (tau + 1),
+                                          dtype=torch.float32))
     return float(np.linalg.norm(params["w"].numpy() - w_star))
 
 

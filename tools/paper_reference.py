@@ -18,9 +18,9 @@ at their default arguments and writes, under
   clients' train and test arrays in order), by which a port on another
   machine shows that its data are the reference's.
 
-The port cannot draw threefry numbers and runs with no JAX, so these files
-are how it starts from the reference's parameters and how its tables on
-the card are held to the reference's rows.  This script is the only
+The port runs with no JAX, so these files are how it starts from the
+reference's parameters and how its tables on the card are held to the
+reference's rows.  This script is the only
 producer of both files; ``tests/test_torch_paper_tables.py`` recomputes
 the initial parameters and two cheap rows and compares them with the
 committed files.
