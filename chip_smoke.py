@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
 round in plan and device mode, the compressed federated round, the client-sharded round, the
-paper's experiments with the client-sequential round, LM serving and
-Mamba2 SSD serving.
+paper's experiments with the client-sequential round, LM serving,
+Mamba2 SSD serving, and the streamed federation's checkpoint and resume.
 
     python3 chip_smoke.py
 
@@ -112,7 +112,24 @@ it, and nothing of JAX or of the JAX package.  In order it
    against the model with the intra-chunk term in f64 (LOGITS_FACTOR),
    decode steps against the full forward in f32, the reduced config on the
    card against the CPU; prefill and decode times, busy shares, memory;
-10. times each kernel beside its bound, its plain version and the one
+10. drives checkpoint and resume of the streamed federation: a
+   ``StreamScheduler`` with ``model_kind="cnn"`` over the main path's
+   EMNIST federation (capacity CKPT_CAPACITY), a TraceShift, an
+   InactivityBurst and an excluding Departure before the cut, an Arrival
+   with a brand-new client and an including Departure pending at it; half
+   of CKPT_ROUNDS run and ``save`` into ``build/checkpoint/``, the
+   scheduler and its engine dropped, ``restore`` onto the card
+   (``device=None``) into a fresh engine and the other half run, against
+   one uncut run of all the rounds; in device mode on the f32 wire, plan
+   mode on the f32 wire and device mode on the int8 wire.  Checks: equal
+   round records (s bit for bit, the eval rounds), finite eval losses
+   within PARAM_TOL of the uncut run's, the control plane's state, each
+   kernel's launches over the resumed rounds, params within PARAM_TOL
+   (with the count of elements that differ, and where any does, a second
+   uncut run's difference from the first beside it), a flipped byte of the
+   saved npz refused (CorruptCheckpointError); prints the npz and manifest
+   bytes and the seconds to save and to restore;
+11. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (weighted_agg_quant from
    device memory and, beside it, from L2; for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
@@ -374,6 +391,18 @@ DEVICE_SHIFT = (1, 5, 5)            # (tau, client, index into TRACES)
 DEVICE_BURST = (3, 2, (0, 1, 2))    # (tau, duration, clients)
 DEVICE_INT8_ROUNDS = 2
 DRAW_SPAN = 10                      # rounds of the timed draw
+# checkpoint and resume: CKPT_ROUNDS rounds cut in half; before the cut a
+# TraceShift (tau, client, index into TRACES), an InactivityBurst (tau,
+# duration, clients) and an excluding Departure (tau, client); pending at
+# it a brand-new client's Arrival and an including Departure (tau, client)
+CKPT_ROUNDS = 12
+CKPT_CAPACITY = 64
+CKPT_SHIFT = (1, 5, 5)
+CKPT_BURST = (2, 2, (0, 1, 2))
+CKPT_EXCLUDE = (4, 3)
+CKPT_ARRIVE = 8
+CKPT_INCLUDE = (10, 7)
+CKPT_LEGS = (("device", None), ("plan", None), ("device", "int8"))
 # the reference's quickstart (examples/quickstart.py): SYNTHETIC(1, 1), 20
 # clients, logreg, scheme C, E 5, B 20, eta0 1.0, 50 rounds, eval every 5;
 # its accuracy after 50 rounds as the verify notes give it, and how far the
@@ -882,22 +911,23 @@ def make_clients(n_clients: int = N_CLIENTS, seed: int = 0):
     return clients
 
 
+def emnist_eval(params, x, y):
+    """The EMNIST CNN's held-out loss and accuracy."""
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.models.small import logits_small
+    ll = torch.log_softmax(logits_small(params, cfg, x), -1)
+    loss = -ll.gather(1, y[:, None].long()).mean()
+    return float(loss), float((ll.argmax(-1) == y).float().mean())
+
+
 def make_trainer(clients, device, agg: str = "auto", compression=None,
                  sharding=None, mode: str = "client_parallel",
                  engine: str = "plan"):
     from repro_torch.configs.paper import EMNIST_CNN as cfg
     from repro_torch.fed import FederatedTrainer
-    from repro_torch.models.small import (init_small, logits_small,
-                                          make_loss_fn)
-
-    def eval_fn(params, x, y):
-        ll = torch.log_softmax(logits_small(params, cfg, x), -1)
-        loss = -ll.gather(1, y[:, None].long()).mean()
-        acc = (ll.argmax(-1) == y).float().mean()
-        return float(loss), float(acc)
-
+    from repro_torch.models.small import init_small, make_loss_fn
     return FederatedTrainer(
-        loss_fn=make_loss_fn(cfg), eval_fn=eval_fn,
+        loss_fn=make_loss_fn(cfg), eval_fn=emnist_eval,
         init_params=init_small(cfg, seed=0, device=device), clients=clients,
         local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
         scheme="C", eta0=cfg.eta0, seed=0, engine=engine, agg=agg,
@@ -2394,7 +2424,183 @@ def ssm_serve_path(dev, planted):
     return launches
 
 
-# -- 10. timing ---------------------------------------------------------------
+# -- 10. checkpoint and resume -------------------------------------------------
+def checkpoint_scheduler(mode: str, compression=None):
+    """The main path's federation on a StreamScheduler (model_kind "cnn",
+    capacity CKPT_CAPACITY, eval on EVAL_EVERY rounds), with its events:
+    CKPT_SHIFT, CKPT_BURST and CKPT_EXCLUDE before the cut,
+    an Arrival of a brand-new client (the federation's 63rd shard) at
+    CKPT_ARRIVE and CKPT_INCLUDE pending at it."""
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.core.participation import TRACES
+    from repro_torch.fed import (Arrival, Departure, InactivityBurst,
+                                 RoundEngine, StreamScheduler, TraceShift)
+    from repro_torch.models.small import init_small, make_loss_fn
+    clients = make_clients(N_CLIENTS + 1)
+    for c in clients:                   # the events below say who moves
+        c.active_from, c.departs_at = 0, None
+    newcomer = clients.pop()
+    engine = RoundEngine(
+        loss_fn=make_loss_fn(cfg), clients=clients,
+        local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
+        scheme="C", eta0=cfg.eta0, capacity=CKPT_CAPACITY,
+        max_samples=newcomer.n, compression=compression,
+        model_kind=cfg.kind)
+    tau, client, trace = CKPT_SHIFT
+    start, duration, cohort = CKPT_BURST
+    return StreamScheduler(
+        clients=clients, init_params=init_small(cfg, seed=0,
+                                                device=engine.device),
+        engine=engine, mode=mode, eval_fn=emnist_eval, seed=0,
+        events=[TraceShift(tau, client_id=client, trace=TRACES[trace]),
+                InactivityBurst(start, duration=duration,
+                                client_ids=cohort),
+                Departure(CKPT_EXCLUDE[0], client_id=CKPT_EXCLUDE[1],
+                          policy="exclude"),
+                Arrival(CKPT_ARRIVE, client=newcomer),
+                Departure(CKPT_INCLUDE[0], client_id=CKPT_INCLUDE[1],
+                          policy="include")])
+
+
+def differing(a: dict, b: dict) -> tuple:
+    """(elements that differ, max abs difference) over two param dicts."""
+    n, worst = 0, 0.0
+    for k, v in a.items():
+        d = (v.float() - b[k].float()).abs()
+        n += int((d > 0).sum())
+        worst = max(worst, float(d.max()))
+    return n, worst
+
+
+def checkpoint_leg(dev, n_leaves: int, mode: str, compression) -> dict:
+    """One leg of the phase: uncut run, cut run saved, restored, resumed
+    and held against the uncut run; a flipped byte refused."""
+    import shutil
+    from repro_torch.checkpoint import CorruptCheckpointError
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.fed import StreamScheduler
+    from repro_torch.kernels import ops
+    from repro_torch.models.small import make_loss_fn
+    label = f"{mode}-{compression or 'f32'}"
+    half = CKPT_ROUNDS // 2
+    uncut = checkpoint_scheduler(mode, compression)
+    uncut.run(CKPT_ROUNDS, eval_every=EVAL_EVERY)
+    torch.cuda.synchronize()
+
+    cut = checkpoint_scheduler(mode, compression)
+    cut.run(half, eval_every=EVAL_EVERY)
+    if cut.pending != 2:
+        raise RuntimeError(f"{cut.pending} events pending at the cut, "
+                           f"expected 2")
+    path = ROOT / "build" / "checkpoint" / label
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cut.save(str(path))
+    save_s = time.perf_counter() - t0
+    del cut                             # the scheduler and its engine
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = StreamScheduler.restore(str(path), loss_fn=make_loss_fn(cfg),
+                                  eval_fn=emnist_eval)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if res.engine.device.type != "cuda" or res.next_tau != half \
+            or res.pending != 2:
+        raise RuntimeError(f"restored onto {res.engine.device} at tau "
+                           f"{res.next_tau} with {res.pending} pending")
+    ops.reset_launches()
+    res.run(CKPT_ROUNDS - half, eval_every=EVAL_EVERY)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    reduction = "weighted_agg_quant" if compression else "weighted_agg"
+    want = expected_launches(**{
+        reduction: CKPT_ROUNDS - half,
+        "masked_sgd": (CKPT_ROUNDS - half) * n_leaves * cfg.local_epochs})
+    if launches != want:
+        raise RuntimeError(f"{label}: launches over the resumed rounds "
+                           f"{launches} != expected {want}")
+
+    for a, b in zip(res.history, uncut.history, strict=True):
+        if not same_records(a, b) or \
+                math.isnan(a.loss) != math.isnan(b.loss):
+            raise RuntimeError(f"{label}: the resumed run's record at "
+                               f"tau={a.tau} differs from the uncut run's")
+        if not math.isnan(b.loss) and not (
+                math.isfinite(a.loss) and abs(a.loss - b.loss)
+                <= PARAM_TOL["atol"] + PARAM_TOL["rtol"] * abs(b.loss)):
+            raise RuntimeError(f"{label}: eval loss {a.loss} resumed, "
+                               f"{b.loss} uncut at tau={a.tau}")
+    events = "".join(h.event for h in res.history)
+    for tag in ("trace-shift:", "burst:", "departure-exclude:",
+                f"arrival:{N_CLIENTS};", "departure-include:"):
+        if tag not in events:
+            raise RuntimeError(f"{label}: events {events!r} lack {tag!r}")
+    for attr in ("objective", "slot_of", "departed", "lr_shift_tau",
+                 "events_applied", "next_tau"):
+        if getattr(res, attr) != getattr(uncut, attr):
+            raise RuntimeError(f"{label}: restored {attr} differs")
+    n_diff, err = differing(res.params, uncut.params)
+    for name, p in uncut.params.items():
+        torch.testing.assert_close(res.params[name], p, **PARAM_TOL,
+                                   msg=f"{label} {name}")
+    noise = ""
+    if n_diff:
+        again = checkpoint_scheduler(mode, compression)
+        again.run(CKPT_ROUNDS, eval_every=EVAL_EVERY)
+        torch.cuda.synchronize()
+        n2, err2 = differing(again.params, uncut.params)
+        noise = (f"; a second uncut run against the first: {n2} elements "
+                 f"differ, max {err2:.3e}")
+        del again
+
+    npz = path / "fed_checkpoint.npz"
+    npz_bytes = npz.stat().st_size
+    manifest_bytes = (path / "fed_manifest.json").stat().st_size
+    with open(npz, "r+b") as f:         # the planted fault: one byte
+        f.seek(npz_bytes // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    try:
+        StreamScheduler.restore(str(path), loss_fn=make_loss_fn(cfg))
+    except CorruptCheckpointError as e:
+        caught = ("CorruptCheckpointError, checksum" if "checksum" in str(e)
+                  else f"CorruptCheckpointError: {e}")
+    else:
+        raise RuntimeError(f"{label}: a checkpoint with a flipped byte was "
+                           f"restored")
+    log(f"  {label}: cut at tau {half} of {CKPT_ROUNDS}; events "
+        f"{events!r}; resumed records equal the uncut run's; launches over "
+        f"the resumed rounds {{{reduction}: {launches[reduction]}, "
+        f"masked_sgd: {launches['masked_sgd']}}}; params: {n_diff} of "
+        f"{sum(p.numel() for p in res.params.values())} elements differ "
+        f"from the uncut run's, max {err:.3e}{noise}; npz {npz_bytes} "
+        f"bytes, manifest {manifest_bytes} bytes; save {save_s:.3f} s, "
+        f"restore {restore_s:.3f} s; flipped byte refused ({caught})")
+    del res, uncut
+    torch.cuda.empty_cache()
+    return dict(npz=npz_bytes, manifest=manifest_bytes, save_s=save_s,
+                restore_s=restore_s, n_diff=n_diff)
+
+
+def checkpoint_path(dev, n_leaves: int, card: str) -> None:
+    """Phase 10: checkpoint and resume in device mode (f32), plan mode
+    (f32) and device mode (int8)."""
+    t0 = time.perf_counter()
+    log(f"checkpoint and resume: StreamScheduler over the EMNIST "
+        f"federation ({N_CLIENTS} clients, capacity {CKPT_CAPACITY}, "
+        f"model_kind 'cnn'), TraceShift {CKPT_SHIFT}, InactivityBurst "
+        f"{CKPT_BURST}, excluding Departure {CKPT_EXCLUDE}; an Arrival of "
+        f"a new client at tau {CKPT_ARRIVE} and including Departure "
+        f"{CKPT_INCLUDE} pending at the cut; on {card}")
+    for mode, compression in CKPT_LEGS:
+        checkpoint_leg(dev, n_leaves, mode, compression)
+    log(f"  checkpoint phase: {time.perf_counter() - t0:.1f} s")
+
+
+# -- 11. timing ---------------------------------------------------------------
 def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for `spin` cycles (a few tens
@@ -2900,6 +3106,7 @@ def main() -> None:
     paper_path(dev, len(leaves), D)
     serve_launches = serve_path(dev, planted)
     ssm_launches = ssm_serve_path(dev, planted_ssd)
+    checkpoint_path(dev, len(leaves), card)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)

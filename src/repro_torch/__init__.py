@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the flexible-participation federated learning system.
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
-(``core/``, ``configs/``, ``data/``, ``kernels/``, ``models/``, ``fed/``) so
-each module has one counterpart to be held against.  It imports neither
+(``core/``, ``configs/``, ``data/``, ``kernels/``, ``models/``, ``fed/``,
+``checkpoint/``) so each module has one counterpart to be held against,
+and its checkpoints are the reference's files.  It imports neither
 ``jax`` nor anything of ``repro``: what it needs of the reference's
 numpy-only modules it keeps as its own copy.
 

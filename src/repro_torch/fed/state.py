@@ -5,13 +5,18 @@ objective/joined/departed/masked membership, the reboot arrays, the
 LR-shift round, the pending event queue, the numpy RNG and the device
 draw's key.  Applying an event mutates host bookkeeping only and returns
 the *engine actions* (slot admits, evicts and trace writes) it implies;
-the StreamScheduler executes them.  ``to_dict``/``from_dict`` wait for the
-checkpoint slice.
+the StreamScheduler executes them.  ``to_dict``/``from_dict`` round-trip
+the whole control plane through plain data, key for key the reference's
+(``checkpoint.io`` persists the dict beside the params), which is what
+makes a mid-stream checkpoint resume round for round.
 
 Invariants (the reference's):
   * client id == index into ``clients``; founding clients occupy slots
     0..C-1 in id order, later arrivals take the lowest free slot;
-  * the queue is a heap keyed by (tau, push order);
+  * the queue is a heap keyed by (tau, push order), ``seq`` a plain int
+    counter so that it serializes;
+  * ``objective_version`` bumps whenever objective membership changes
+    (the scheduler's eval-set cache keys on it);
   * ``sample_plan`` consumes the RNG per occupied active slot in slot
     order, the seed loop's draw order, so a seed gives both packages the
     same participation and batch stream;
@@ -29,10 +34,14 @@ import numpy as np
 
 from repro_torch.core.arrivals import RebootState
 from repro_torch.core.departures import BoundTerms, should_exclude
-from repro_torch.core.prng import prng_key
+import torch
+
+from repro_torch.core.prng import MASK, prng_key
 from repro_torch.fed.driver import Client
 from repro_torch.fed.events import (Arrival, Departure, InactivityBurst,
-                                    ParticipationEvent, TraceShift)
+                                    ParticipationEvent, TraceShift,
+                                    client_from_dict, client_to_dict,
+                                    event_from_dict, event_to_dict)
 
 # engine actions a transition emits: ("admit", slot, client_id),
 # ("evict", slot), ("set_trace", slot, trace)
@@ -78,6 +87,7 @@ class FedState:
         self.rb_boost = np.ones(capacity, np.float32)
         self.reboots: List[RebootState] = (reboots if reboots is not None
                                            else [])
+        self.objective_version = 0
 
         self.queue: List[Tuple[int, int, ParticipationEvent]] = []
         self.seq = 0
@@ -100,6 +110,34 @@ class FedState:
 
     def pop_event(self) -> ParticipationEvent:
         return heapq.heappop(self.queue)[2]
+
+    def compact_stale_traceshifts(self) -> int:
+        """Bound the queue under a flood of TraceShifts: among queued stale
+        ones (tau already passed, so they all fire at the next boundary)
+        keep only the newest per client, which is what applying them in
+        order computes, and drop that one too when it restates the
+        client's current trace.  Future events and every other kind are
+        kept.  Returns the number of events dropped."""
+        now = self.next_tau
+        keep, newest = [], {}
+        for entry in self.queue:
+            e = entry[2]
+            if isinstance(e, TraceShift) and entry[0] <= now:
+                cur = newest.get(e.client_id)
+                if cur is None or entry[1] > cur[1]:
+                    newest[e.client_id] = entry
+            else:
+                keep.append(entry)
+        for entry in newest.values():
+            e = entry[2]
+            if not (0 <= e.client_id < len(self.clients)
+                    and e.trace == self.clients[e.client_id].trace):
+                keep.append(entry)
+        dropped = len(self.queue) - len(keep)
+        if dropped:
+            heapq.heapify(keep)
+            self.queue = keep
+        return dropped
 
     # -- membership ----------------------------------------------------------
     def active(self, i: int, tau: int) -> bool:
@@ -158,6 +196,7 @@ class FedState:
                 self.joined[i] = tau
                 return f"rejoin:{i};", actions
             self.objective.add(i)
+            self.objective_version += 1
             self.joined[i] = tau
             self.departed.discard(i)
             self.lr_shift_tau = tau
@@ -185,6 +224,7 @@ class FedState:
             self._free_slot(i, actions)
             if policy == "exclude":
                 self.objective.discard(i)
+                self.objective_version += 1
                 self.lr_shift_tau = tau
                 return f"departure-exclude:{i};", actions
             return f"departure-include:{i};", actions
@@ -281,3 +321,92 @@ class FedState:
                            ).astype(np.float32)
             idx[slot] = self.rng.integers(0, cl.n, size=(E, B))
         return alpha, idx
+
+    # -- serialization --------------------------------------------------------
+    def to_dict(self) -> dict:
+        """Plain-data snapshot (scalars, strings, lists, numpy arrays),
+        key for key the reference's: int-keyed maps as sorted item lists,
+        the key as the reference's two uint32 words, the RNG as numpy's
+        ``bit_generator.state``.  Round-trips exactly through
+        ``from_dict``."""
+        return {
+            "version": 1,
+            "capacity": self.capacity,
+            "reboot_boost": self.reboot_boost,
+            "fast_reboot": self.fast_reboot,
+            "horizon": self.horizon,
+            "bound_terms": {"D": self.bound_terms.D,
+                            "V": self.bound_terms.V,
+                            "gamma": self.bound_terms.gamma,
+                            "E": self.bound_terms.E},
+            "slot_of": sorted(self.slot_of.items()),
+            "free_slots": sorted(self.free_slots),
+            "objective": sorted(self.objective),
+            "joined": sorted(self.joined.items()),
+            "departed": sorted(self.departed),
+            "mask_until": sorted(self.mask_until.items()),
+            "expiry_taus": sorted(self.expiry_taus),
+            "lr_shift_tau": self.lr_shift_tau,
+            "rb_tau0": self.rb_tau0.copy(),
+            "rb_boost": self.rb_boost.copy(),
+            "reboots": [[r.tau0, r.client_idx, r.boost]
+                        for r in self.reboots],
+            "objective_version": self.objective_version,
+            "rng_state": self.rng.bit_generator.state,
+            "key": key_words(self.key),
+            "queue": [[tau, seq, event_to_dict(e)]
+                      for tau, seq, e in sorted(self.queue)],
+            "seq": self.seq,
+            "next_tau": self.next_tau,
+            "events_applied": self.events_applied,
+            "clients": [client_to_dict(c) for c in self.clients],
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FedState":
+        """The inverse of ``to_dict``, for a dict made by either package;
+        the key comes back as the port's int64 words."""
+        if d.get("version") != 1:
+            raise ValueError(f"unknown FedState version {d.get('version')!r}")
+        bt = d["bound_terms"]
+        st = cls(clients=[client_from_dict(c) for c in d["clients"]],
+                 capacity=int(d["capacity"]),
+                 reboot_boost=float(d["reboot_boost"]),
+                 fast_reboot=bool(d["fast_reboot"]),
+                 horizon=d["horizon"],
+                 bound_terms=BoundTerms(D=bt["D"], V=bt["V"],
+                                        gamma=bt["gamma"], E=int(bt["E"])),
+                 key=torch.from_numpy(
+                     np.asarray(d["key"]).astype(np.int64)))
+        st.rng.bit_generator.state = d["rng_state"]
+        st.slot_of = {int(i): int(s) for i, s in d["slot_of"]}
+        st.client_at = {s: i for i, s in st.slot_of.items()}
+        st.free_slots = [int(s) for s in d["free_slots"]]
+        heapq.heapify(st.free_slots)
+        st.objective = {int(i) for i in d["objective"]}
+        st.joined = {int(i): int(t) for i, t in d["joined"]}
+        st.departed = {int(i) for i in d["departed"]}
+        st.mask_until = {int(i): int(t) for i, t in d["mask_until"]}
+        st.expiry_taus = {int(t) for t in d["expiry_taus"]}
+        st.lr_shift_tau = int(d["lr_shift_tau"])
+        st.rb_tau0 = np.asarray(d["rb_tau0"], np.int32).copy()
+        st.rb_boost = np.asarray(d["rb_boost"], np.float32).copy()
+        st.reboots = [RebootState(int(t), int(i), float(b))
+                      for t, i, b in d["reboots"]]
+        st.objective_version = int(d.get("objective_version", 0))
+        st.queue = [(int(tau), int(seq), event_from_dict(ev))
+                    for tau, seq, ev in d["queue"]]
+        heapq.heapify(st.queue)
+        st.seq = int(d["seq"])
+        st.next_tau = int(d["next_tau"])
+        st.events_applied = int(d["events_applied"])
+        return st
+
+
+def key_words(key) -> np.ndarray:
+    """A key (``core.prng``: (2,) int64 words) as the reference stores its
+    jax key: a (2,) uint32 array."""
+    words = np.asarray(torch.as_tensor(key).cpu(), np.int64)
+    if words.shape != (2,) or ((words & MASK) != words).any():
+        raise ValueError(f"a key is two 32-bit words, got {words!r}")
+    return words.astype(np.uint32)

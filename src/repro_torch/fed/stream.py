@@ -1,8 +1,9 @@
 """Streaming participation: an event queue driving spans of rounds.
 
-Counterpart of ``repro/fed/stream.py``'s ``StreamScheduler`` (the tiered
-bank, prefetch, fault injection and telemetry wait for later slices).  At
-each span start the scheduler pops every queued event with tau <= now,
+Counterpart of ``repro/fed/stream.py``'s ``StreamScheduler``, with its
+checkpoint and resume (the tiered bank, prefetch, fault injection and
+telemetry come with the service layer, ROADMAP item 4).  At each span
+start the scheduler pops every queued event with tau <= now,
 applies it to the FedState and executes the slot actions it returns
 against the RoundEngine (consecutive admits land as one ``admit_many``
 burst; evicts and trace writes in order); then it runs rounds until the
@@ -13,20 +14,43 @@ mode="device" (the reference's default) draws participation and batches
 on the device from the state's key (``RoundEngine.run_span(key=...)``);
 mode="plan" samples them on the host with the numpy RNG in the seed draw
 order, sample-for-sample the reference's plan mode.
+
+``save()``/``restore()`` write and read the reference's checkpoint format
+(``checkpoint.io``): params in the reference's layout (the CNN's conv
+weights HWIO, ``w1``'s rows in HWC order, by the engine's ``model_kind``),
+the FedState dict with its pending events, RNG and key, the round history
+and the engine geometry.  Because the key is never split and plan mode
+draws per round in tau order, a run restored from disk replays the
+remaining rounds as the uninterrupted run does, and a checkpoint written
+by either package resumes in the other::
+
+    sch.run(6, eval_every=4)
+    sch.save("ckpt/")                                  # ... crash ...
+    sch = StreamScheduler.restore("ckpt/", loss_fn=loss_fn, eval_fn=eval_fn)
+    sch.run(6, eval_every=4)                           # round for round
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import params as layout
+from repro_torch.checkpoint.io import load_fed_checkpoint, save_fed_checkpoint
+from repro_torch.configs.paper import PAPER_CONFIGS
 from repro_torch.core.arrivals import RebootState
 from repro_torch.core.departures import BoundTerms
 from repro_torch.fed.driver import Client, RoundRecord
 from repro_torch.fed.engine import RoundEngine
 from repro_torch.fed.events import ParticipationEvent
 from repro_torch.fed.state import FedState
+from repro_torch.fed.task import ArrayTask
+
+# the reference's default scan chunk: the port runs a span's rounds one
+# after another and has no chunks, but the reference's restore reads a
+# chunk_size from every checkpoint's config
+REFERENCE_CHUNK_SIZE = 16
 
 
 class StreamScheduler:
@@ -35,22 +59,29 @@ class StreamScheduler:
     batch indices drawn on the device (``mode="device"``) or sampled on
     the host in the seed draw order (``mode="plan"``).
 
-    ``evaluate()`` (optional) returns (loss, acc) for the current params;
-    it runs on the last round of a span that ends on an eval round, and
-    rounds without an eval record NaN.  With the engine's
-    ``with_metrics``, ``delta_norms`` holds each round's delta norm.
+    ``evaluate(params)`` (optional) returns (loss, acc); without it,
+    ``eval_fn(params, x, y)`` runs on the held-out arrays of the
+    objective's clients, concatenated on the engine's device once per
+    objective membership (``FedState.objective_version``).  An eval runs
+    on the last round of a span that ends on an eval round; rounds
+    without one record NaN.  With the engine's ``with_metrics``,
+    ``delta_norms`` holds each round's delta norm.  ``state`` (a
+    ``FedState``, as ``restore`` passes) replaces the fresh one the other
+    arguments would build, ``clients`` included.
     """
 
-    def __init__(self, *, clients: Sequence[Client], init_params,
+    def __init__(self, *, clients: Sequence[Client] = (), init_params,
                  engine: RoundEngine, mode: str = "device",
                  reboot_boost: float = 3.0, fast_reboot: bool = True,
                  horizon: Optional[int] = None,
                  bound_terms: Optional[BoundTerms] = None, seed: int = 0,
                  rng: Optional[np.random.Generator] = None, key=None,
                  evaluate: Optional[Callable] = None,
+                 eval_fn: Optional[Callable] = None,
                  history: Optional[List[RoundRecord]] = None,
                  reboots: Optional[List[RebootState]] = None,
                  objective: Optional[set] = None,
+                 state: Optional[FedState] = None,
                  events: Sequence[ParticipationEvent] = ()):
         if mode not in ("device", "plan"):
             raise ValueError(f"mode must be device|plan, got {mode!r}")
@@ -60,12 +91,16 @@ class StreamScheduler:
         self.B = engine.B
         self.params = init_params
         self._evaluate = evaluate
-        self.state = FedState(
-            clients=list(clients), capacity=engine.capacity,
-            reboot_boost=reboot_boost, fast_reboot=fast_reboot,
-            horizon=horizon, bound_terms=bound_terms, local_epochs=engine.E,
-            seed=seed, rng=rng, key=key, objective=objective,
-            reboots=reboots)
+        self.eval_fn = eval_fn
+        self._eval_cache = None         # (objective_version, x, y)
+        if state is None:
+            state = FedState(
+                clients=list(clients), capacity=engine.capacity,
+                reboot_boost=reboot_boost, fast_reboot=fast_reboot,
+                horizon=horizon, bound_terms=bound_terms,
+                local_epochs=engine.E, seed=seed, rng=rng, key=key,
+                objective=objective, reboots=reboots)
+        self.state = state
         self.history: List[RoundRecord] = (history if history is not None
                                            else [])
         self.delta_norms: List[float] = []
@@ -73,9 +108,39 @@ class StreamScheduler:
         self._dirty = True
         self.push(*events)
 
+    # -- control-plane views -------------------------------------------------
+    @property
+    def clients(self) -> List[Client]:
+        return self.state.clients
+
+    @property
+    def objective(self) -> set:
+        return self.state.objective
+
+    @property
+    def departed(self) -> set:
+        return self.state.departed
+
+    @property
+    def slot_of(self):
+        return self.state.slot_of
+
     @property
     def lr_shift_tau(self) -> int:
         return self.state.lr_shift_tau
+
+    @property
+    def events_applied(self) -> int:
+        return self.state.events_applied
+
+    @property
+    def next_tau(self) -> int:
+        """The round the next run() starts at."""
+        return self.state.next_tau
+
+    @property
+    def pending(self) -> int:
+        return self.state.pending
 
     def push(self, *events: ParticipationEvent) -> None:
         """Enqueue participation events (any order, any time, including
@@ -108,10 +173,32 @@ class StreamScheduler:
             self._dirty = True
         return ev
 
+    def _eval_arrays(self):
+        """The objective's held-out arrays on the engine's device, rebuilt
+        only when objective membership changed."""
+        version = self.state.objective_version
+        if self._eval_cache is None or self._eval_cache[0] != version:
+            held = [self.clients[i] for i in sorted(self.objective)
+                    if self.clients[i].x_test is not None]
+            x = y = None
+            if held:
+                dev = self.engine.device
+                x = torch.from_numpy(
+                    np.concatenate([c.x_test for c in held])).to(dev)
+                y = torch.from_numpy(
+                    np.concatenate([c.y_test for c in held])).to(dev)
+            self._eval_cache = (version, x, y)
+        return self._eval_cache[1:]
+
     def evaluate(self):
-        if self._evaluate is None:
+        if self._evaluate is not None:
+            return self._evaluate(self.params)
+        if self.eval_fn is None:
             return float("nan"), float("nan")
-        return self._evaluate(self.params)
+        x, y = self._eval_arrays()
+        if x is None:
+            return float("nan"), float("nan")
+        return self.eval_fn(self.params, x, y)
 
     def _args(self, tau: int) -> dict:
         """The span arguments on the engine's device, recomputed only when
@@ -188,3 +275,217 @@ class StreamScheduler:
                     t, float(loss), float(acc), float(eta_all[row]),
                     int((s > 0).sum()), s, ev if t == tau else ""))
                 row += 1
+
+    # -- checkpoint / resume ---------------------------------------------------
+    def engine_config(self) -> dict:
+        """The engine's geometry, under every key the reference's
+        ``restore`` reads (``chunk_size`` is the reference's default: the
+        port has no scan chunks; ``bank`` and ``prefetch`` are off: the
+        port has neither yet), plus ``model_kind``, which fixes the
+        params' layout."""
+        eng = self.engine
+        return {"local_epochs": eng.E, "batch_size": eng.B,
+                "scheme": eng.scheme, "eta0": eng.eta0,
+                "chunk_size": REFERENCE_CHUNK_SIZE, "agg": eng.agg,
+                "compression": eng.compression.name,
+                "with_metrics": eng.with_metrics,
+                "engine_mode": eng.mode, "capacity": eng.capacity,
+                "max_samples": eng.nmax, "mode": self.mode,
+                "bank": False, "prefetch": False,
+                "model_kind": eng.model_kind}
+
+    def save(self, path: str, extra: Optional[dict] = None,
+             client_chunks: bool = False) -> None:
+        """Persist params, FedState, history and engine geometry in the
+        reference's format (``checkpoint.io.save_fed_checkpoint``;
+        ``client_chunks=True`` writes fed-checkpoint-v2), the params in
+        the reference's layout for the engine's ``model_kind``.  Under
+        sharding every rank holds the same params and state: save from
+        one rank."""
+        save_fed_checkpoint(
+            path, reference_params(self.params, self.engine.model_kind),
+            self.state.to_dict(), history=history_to_dict(self.history),
+            config=self.engine_config(), extra=extra,
+            client_chunks=client_chunks)
+
+    @classmethod
+    def restore(cls, path: str, *, loss_fn: Optional[Callable] = None,
+                task=None, model_kind: Optional[str] = None, device=None,
+                eval_fn: Optional[Callable] = None,
+                evaluate: Optional[Callable] = None,
+                engine: Optional[RoundEngine] = None, sharding=None,
+                **overrides) -> "StreamScheduler":
+        """Rebuild a scheduler from a checkpoint that either package's
+        ``save()`` wrote.  The engine is rebuilt on ``device`` (the CUDA
+        device unless ``device="cpu"``) from the persisted geometry, or
+        ``engine`` (of the checkpoint's capacity and wire) is reused with
+        every slot evicted first; every occupied slot is re-admitted in
+        one ``admit_many`` in slot order; the FedState (queue, membership,
+        reboots, RNG, key) and the history resume where they stopped.
+        Only the callables (``loss_fn`` or ``task``, ``eval_fn`` or
+        ``evaluate``) are the caller's to supply.  ``model_kind`` (the
+        checkpoint's own, else None) fixes the layout the params are read
+        in; ``overrides`` replace entries of the persisted geometry.
+
+        Raises ``checkpoint.CorruptCheckpointError`` when the checkpoint
+        fails its checksum, and ValueError for a checkpoint saved with
+        the tiered bank or prefetch on."""
+        params, state_dict, history, config, _extra = \
+            load_fed_checkpoint(path)
+        cfg = dict(config)
+        cfg.update(overrides)
+        for flag in ("bank", "prefetch"):
+            if cfg.get(flag):
+                raise ValueError(
+                    f"checkpoint {path!r} was saved with {flag}=True: the "
+                    f"tiered client bank and its prefetch are not ported "
+                    f"yet (ROADMAP item 4)")
+        state = FedState.from_dict(state_dict)
+        if model_kind is None:
+            model_kind = cfg.get("model_kind")
+        compression = cfg.get("compression", "none")
+        if engine is None:
+            if task is None and loss_fn is not None and state.clients:
+                task = ArrayTask(loss_fn,
+                                 np.asarray(state.clients[0].x).shape[1:])
+            engine = RoundEngine(
+                task=task, clients=[], local_epochs=cfg["local_epochs"],
+                batch_size=cfg["batch_size"], scheme=cfg["scheme"],
+                eta0=cfg["eta0"], agg=cfg["agg"],
+                with_metrics=cfg["with_metrics"], compression=compression,
+                capacity=cfg["capacity"], max_samples=cfg["max_samples"],
+                device=device, model_kind=model_kind, sharding=sharding,
+                mode=cfg["engine_mode"])
+        else:
+            if engine.capacity != cfg["capacity"]:
+                raise ValueError(
+                    f"reused engine capacity {engine.capacity} != "
+                    f"checkpoint capacity {cfg['capacity']}")
+            if engine.compression.name != compression:
+                raise ValueError(
+                    f"reused engine compression "
+                    f"{engine.compression.name!r} != checkpoint "
+                    f"compression {compression!r}")
+            if model_kind is not None and engine.model_kind != model_kind:
+                raise ValueError(
+                    f"reused engine model_kind {engine.model_kind!r} != "
+                    f"{model_kind!r}")
+            for slot in range(engine.capacity):
+                engine.evict(slot)
+        if engine.capacity != state.capacity:
+            raise ValueError(
+                f"the engine has {engine.capacity} slots (sharding pads to "
+                f"whole slots per rank), the checkpoint's state "
+                f"{state.capacity}: save with a capacity the ranks divide")
+        engine.admit_many(sorted(
+            ((slot, state.clients[i]) for i, slot in state.slot_of.items()),
+            key=lambda sc: sc[0]))
+        return cls(init_params=port_params(params, engine.model_kind,
+                                           engine.device),
+                   engine=engine, state=state, mode=cfg["mode"],
+                   eval_fn=eval_fn, evaluate=evaluate,
+                   history=history_from_dict(history))
+
+
+# -- params on disk: the reference's layout ------------------------------------
+
+_CONFIG_OF_KIND = {cfg.kind: cfg for cfg in PAPER_CONFIGS.values()}
+
+
+def _config_of(kind: Optional[str], params):
+    """The paper model config whose layout ``kind`` names; None where the
+    two packages' layouts are one.  A 4-D leaf (a convolution's weights)
+    with no kind raises: its layout would be a guess."""
+    if kind is None:
+        if any(np.ndim(v) == 4 for v in params.values()):
+            raise ValueError(
+                "parameters with a 4-D (convolution) leaf need the model's "
+                "kind (RoundEngine(model_kind=...) or restore(model_kind="
+                "...)): the CNN's layout on disk is the reference's, not "
+                "the port's")
+        return None
+    if kind not in _CONFIG_OF_KIND:
+        raise ValueError(f"unknown model kind {kind!r}; expected one of "
+                         f"{sorted(_CONFIG_OF_KIND)}")
+    return _CONFIG_OF_KIND[kind]
+
+
+_NUMPY_FLOATS = (torch.float16, torch.float32, torch.float64)
+_TORCH_INT_BY_ITEMSIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                          8: torch.int64}
+
+
+def _as_bits(params) -> Tuple[dict, dict]:
+    """Split leaves numpy has no dtype for (bfloat16, the float8 types) into
+    a signed-int view of their bits on the host, so the layout functions
+    can move them, and the dtype each had: (leaves, {name: dtype})."""
+    out, dtypes = {}, {}
+    for k, v in params.items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point() \
+                and v.dtype not in _NUMPY_FLOATS:
+            dtypes[k] = v.dtype
+            v = v.detach().cpu().view(_TORCH_INT_BY_ITEMSIZE[v.element_size()])
+        out[k] = v
+    return out, dtypes
+
+
+def reference_params(params, kind: Optional[str]) -> dict:
+    """The port's params as the reference lays them out on disk: numpy,
+    except bf16 (and float8) leaves, which stay torch tensors for
+    ``checkpoint.io`` to store as bits under their dtype's name."""
+    cfg = _config_of(kind, params)
+    params, dtypes = _as_bits(params)
+    if cfg is None:
+        out = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    else:
+        out = layout.to_numpy(params, cfg)
+    for k, dt in dtypes.items():
+        out[k] = torch.from_numpy(out[k]).view(dt)
+    return out
+
+
+def port_params(params, kind: Optional[str], device) -> dict:
+    """The reference's layout on disk -> the port's tensors on device, bf16
+    (and float8) leaves, as ``checkpoint.io`` loads them, bit for bit."""
+    cfg = _config_of(kind, params)
+    params, dtypes = _as_bits(params)
+    params = {k: v.numpy() if isinstance(v, torch.Tensor) else v
+              for k, v in params.items()}
+    if cfg is None:
+        out = {k: torch.tensor(np.asarray(v), device=device)
+               for k, v in params.items()}
+    else:
+        out = layout.from_jax(params, cfg, device)
+    for k, dt in dtypes.items():
+        out[k] = out[k].view(dt)
+    return out
+
+
+# -- history (de)serialization -------------------------------------------------
+
+def history_to_dict(history: Sequence[RoundRecord]) -> dict:
+    """Columnar plain-data form of a RoundRecord list (numpy arrays and
+    JSON-able lists), key for key the reference's; round-trips exactly
+    through history_from_dict."""
+    R = len(history)
+    cap = len(history[0].s) if R else 0
+    return {
+        "tau": np.asarray([h.tau for h in history], np.int64),
+        "loss": np.asarray([h.loss for h in history], np.float64),
+        "acc": np.asarray([h.acc for h in history], np.float64),
+        "eta": np.asarray([h.eta for h in history], np.float64),
+        "n_active": np.asarray([h.n_active for h in history], np.int64),
+        "s": (np.stack([np.asarray(h.s, np.float32) for h in history])
+              if R else np.zeros((0, cap), np.float32)),
+        "event": [h.event for h in history],
+    }
+
+
+def history_from_dict(d: Optional[dict]) -> List[RoundRecord]:
+    if not d or len(d.get("tau", ())) == 0:
+        return []
+    return [RoundRecord(int(d["tau"][j]), float(d["loss"][j]),
+                        float(d["acc"][j]), float(d["eta"][j]),
+                        int(d["n_active"][j]), np.asarray(d["s"][j]),
+                        str(d["event"][j]))
+            for j in range(len(d["tau"]))]

@@ -486,3 +486,64 @@ def test_device_draw_on_the_card_equals_the_cpu(card):
         assert g.is_cuda and torch.equal(g.cpu(), w)
     assert torch.equal(prng.uniform(keys.to(card), (C, E, B)).cpu(),
                        prng.uniform(keys, (C, E, B)))
+
+
+@pytest.mark.parametrize("mode", ["device", "plan"])
+def test_checkpoint_saved_and_restored_on_the_card(card, mode, tmp_path):
+    """The reference's resume scenario (logreg, 6 clients, every event
+    kind, an Arrival with a brand-new client and a Departure pending at
+    the cut) run on the card, saved at tau 6 and restored onto the card
+    (device=None) into a fresh engine: the resumed rounds launch the
+    round's kernels, and the round records equal one uncut run's, params
+    within rtol 1e-5, atol 1e-6."""
+    import numpy as np
+    from repro_torch.benchmarks.reference import reference_init
+    from repro_torch.configs.paper import SYNTHETIC_LR as cfg
+    from repro_torch.core.participation import TRACES
+    from repro_torch.data import synthetic_federation
+    from repro_torch.fed import (Arrival, Client, Departure,
+                                 InactivityBurst, RoundEngine,
+                                 StreamScheduler, TraceShift)
+    from repro_torch.models.small import make_loss_fn
+
+    def clients(n, seed):
+        train, _ = synthetic_federation(0.5, 0.5, n, seed=seed)
+        rng = np.random.default_rng(seed)
+        return [Client(x=tr[0], y=tr[1], trace=TRACES[rng.integers(0, 8)])
+                for tr in train]
+
+    def scheduler():
+        founding = clients(6, 0)
+        engine = RoundEngine(loss_fn=make_loss_fn(cfg), clients=founding,
+                             local_epochs=5, batch_size=6, eta0=1.0,
+                             capacity=8, max_samples=600,
+                             model_kind=cfg.kind)
+        return StreamScheduler(
+            clients=founding, init_params=reference_init(cfg, card),
+            engine=engine, mode=mode, seed=0,
+            events=[TraceShift(2, client_id=0, trace=TRACES[1]),
+                    InactivityBurst(3, 2, (1, 2)),
+                    Departure(5, client_id=3, policy="exclude"),
+                    Arrival(8, client=clients(1, 500)[0]),
+                    Departure(10, client_id=1, policy="include")])
+
+    uncut = scheduler()
+    uncut.run(12, eval_every=4)
+    cut = scheduler()
+    cut.run(6, eval_every=4)
+    cut.save(str(tmp_path / "ckpt"))
+    del cut
+    res = StreamScheduler.restore(str(tmp_path / "ckpt"),
+                                  loss_fn=make_loss_fn(cfg))
+    assert res.engine.device.type == "cuda" and res.pending == 2
+    ops.reset_launches()
+    res.run(6, eval_every=4)
+    torch.cuda.synchronize()
+    assert ops.launches["weighted_agg"] == 6
+    assert ops.launches["masked_sgd"] == 6 * 2 * 5
+    for a, b in zip(res.history, uncut.history, strict=True):
+        assert (a.tau, a.eta, a.n_active, a.event) == \
+            (b.tau, b.eta, b.n_active, b.event)
+        assert np.array_equal(a.s, b.s)
+    for k, v in uncut.params.items():
+        torch.testing.assert_close(res.params[k], v, rtol=1e-5, atol=1e-6)
