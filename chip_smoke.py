@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
 round in plan and device mode, the compressed federated round, the client-sharded round, the
 paper's experiments with the client-sequential round, LM serving,
-Mamba2 SSD serving, and the streamed federation's checkpoint and resume.
+Mamba2 SSD serving, the streamed federation's checkpoint and resume, and the
+streaming scenario library through its CLI.
 
     python3 chip_smoke.py
 
@@ -129,7 +130,20 @@ it, and nothing of JAX or of the JAX package.  In order it
    uncut run's difference from the first beside it), a flipped byte of the
    saved npz refused (CorruptCheckpointError); prints the npz and manifest
    bytes and the seconds to save and to restore;
-11. times each kernel beside its bound, its plain version and the one
+11. drives the streaming scenario library through its CLI: each of the
+   five named scenarios at its defaults,
+   ``repro_torch.launch.fed_stream.main`` on the card (device mode, f32)
+   and with ``--device cpu``, each run saving its end state into
+   ``build/scenarios/``.  Checks: equal round records (s bit for bit, the
+   eval rounds), equal ``events_applied`` and ``clients_end``, finite eval
+   losses, launches of weighted_agg 1 and masked_sgd 2 leaves x E a round,
+   the first span's params (``build_scheduler``, one round) card against
+   CPU within PARAM_TOL; prints rounds/s per scenario and the final
+   params' distance in PARAM_TOLs.  Then churn with ``--compress int8
+   --mode plan`` (weighted_agg_quant once a round, weighted_agg never,
+   the CPU's records), and rotation saved at SCENARIO_CUT and restored
+   onto the card (records equal to the uncut run's, params bit-identical);
+12. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (weighted_agg_quant from
    device memory and, beside it, from L2; for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
@@ -403,6 +417,9 @@ CKPT_EXCLUDE = (4, 3)
 CKPT_ARRIVE = 8
 CKPT_INCLUDE = (10, 7)
 CKPT_LEGS = (("device", None), ("plan", None), ("device", "int8"))
+# the streaming scenarios: rotation (60 rounds) is cut here, saved and
+# restored onto the card
+SCENARIO_CUT = 30
 # the reference's quickstart (examples/quickstart.py): SYNTHETIC(1, 1), 20
 # clients, logreg, scheme C, E 5, B 20, eta0 1.0, 50 rounds, eval every 5;
 # its accuracy after 50 rounds as the verify notes give it, and how far the
@@ -2600,7 +2617,158 @@ def checkpoint_path(dev, n_leaves: int, card: str) -> None:
     log(f"  checkpoint phase: {time.perf_counter() - t0:.1f} s")
 
 
-# -- 11. timing ---------------------------------------------------------------
+# -- 11. the streaming scenarios ----------------------------------------------
+def param_tols(a: dict, b: dict) -> float:
+    """The largest |a - b| / (atol + rtol |b|) over every element, PARAM_TOL's
+    units (1 is its edge)."""
+    return max(float(np.max(np.abs(np.asarray(a[k], np.float64)
+                                   - np.asarray(v, np.float64))
+                            / (PARAM_TOL["atol"] + PARAM_TOL["rtol"]
+                               * np.abs(np.asarray(v, np.float64)))))
+               for k, v in b.items())
+
+
+def saved_run(path):
+    """(history, params) of a fed_stream --save-state checkpoint."""
+    from repro_torch.checkpoint.io import load_fed_checkpoint
+    from repro_torch.fed.stream import history_from_dict
+    params, _, history, _, _ = load_fed_checkpoint(str(path))
+    return history_from_dict(history), params
+
+
+def same_run_records(label: str, got, want) -> None:
+    """Equal round records (s bit for bit), the same eval rounds, finite
+    eval losses."""
+    if len(got) != len(want):
+        raise RuntimeError(f"{label}: {len(got)} rounds against "
+                           f"{len(want)}")
+    for a, b in zip(got, want):
+        if not same_records(a, b) or math.isnan(a.loss) != math.isnan(b.loss):
+            raise RuntimeError(f"{label}: the record at tau={a.tau} differs")
+        if not math.isnan(a.loss) and not (math.isfinite(a.loss)
+                                           and math.isfinite(a.acc)):
+            raise RuntimeError(f"{label}: non-finite eval at tau={a.tau}")
+
+
+def scenario_cli(args, dev, path):
+    """fed_stream's main on dev (or the CPU), saving its end state at path:
+    (summary, launches, history, params)."""
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch.fed_stream import main as fed_stream
+    shutil.rmtree(path, ignore_errors=True)
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    ops.reset_launches()
+    summary = fed_stream(list(args) + device + ["--quiet", "--save-state",
+                                                 str(path)])
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    return (summary, launches) + saved_run(path)
+
+
+def first_span_against_cpu(name: str, dev) -> float:
+    """The scenario's first span (round 0, an eval round) from the
+    reference's initial params on the card and on the CPU: the card's
+    params in PARAM_TOLs of the CPU's (at most 1)."""
+    from repro_torch.fed.scenarios import build_scheduler, make_scenario
+    runs = []
+    for device in (dev, "cpu"):
+        sc = make_scenario(name)
+        sch = build_scheduler(sc, device=device)
+        sch.run(1, eval_every=sc.eval_every)
+        runs.append({k: v.cpu().numpy() for k, v in sch.params.items()})
+    d = param_tols(*runs)
+    if d > 1:
+        raise RuntimeError(f"{name}: the first span's params lie {d:.3f} "
+                           f"PARAM_TOLs from the CPU's")
+    return d
+
+
+def scenario_path(dev, card: str) -> None:
+    """Phase 11: the five scenarios through fed_stream on the card and the
+    CPU, churn on the int8 wire in plan mode, rotation cut and resumed."""
+    from repro_torch.configs.paper import SYNTHETIC_LR
+    from repro_torch.fed.scenarios import SCENARIOS, make_scenario
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = ROOT / "build" / "scenarios"
+    leaves = 2                          # the logreg's w and b
+    log(f"streaming scenarios: repro_torch.launch.fed_stream at each "
+        f"scenario's defaults, on the card (device mode, f32) and with "
+        f"--device cpu; {SYNTHETIC_LR.name}, from the reference's initial "
+        f"params; on {card}")
+    uncut = {}
+    for name in SCENARIOS:
+        sc = make_scenario(name)
+        summary, launches, history, params = scenario_cli(
+            ["--scenario", name], dev, out / f"{name}-card")
+        c_summary, _, c_history, c_params = scenario_cli(
+            ["--scenario", name], cpu, out / f"{name}-cpu")
+        same_run_records(name, history, c_history)
+        for key in ("events_applied", "clients_end", "rounds", "evals"):
+            if summary[key] != c_summary[key]:
+                raise RuntimeError(f"{name}: {key} {summary[key]} on the "
+                                   f"card, {c_summary[key]} on the CPU")
+        R = summary["rounds"]
+        want = expected_launches(weighted_agg=R,
+                                 masked_sgd=R * leaves * sc.local_epochs)
+        if launches != want:
+            raise RuntimeError(f"{name}: launches {launches} != {want}")
+        first = first_span_against_cpu(name, dev)
+        final = param_tols(params, c_params)
+        uncut[name] = (history, params)
+        log(f"  {name} ({sc.notes}): {R} rounds, {summary['events_applied']} "
+            f"events, clients_end {summary['clients_end']}, records equal "
+            f"to the CPU's; launches weighted_agg {launches['weighted_agg']}, "
+            f"masked_sgd {launches['masked_sgd']}; rounds/s card "
+            f"{summary['rounds_per_sec']} (wall {summary['wall_s']} s, "
+            f"build included), CPU {c_summary['rounds_per_sec']}; first "
+            f"span's params {first:.3f} PARAM_TOLs from the CPU's, final "
+            f"{final:.3f}; final loss {summary['final_loss']:.6f} card, "
+            f"{c_summary['final_loss']:.6f} CPU")
+
+    args = ["--scenario", "churn", "--compress", "int8", "--mode", "plan"]
+    summary, launches, history, _ = scenario_cli(args, dev,
+                                                 out / "churn-int8-card")
+    _, _, c_history, _ = scenario_cli(args, cpu, out / "churn-int8-cpu")
+    same_run_records("churn int8 plan", history, c_history)
+    R = summary["rounds"]
+    want = expected_launches(weighted_agg_quant=R,
+                             masked_sgd=R * leaves * SYNTHETIC_LR.local_epochs)
+    if launches != want or summary["compression"] != "int8":
+        raise RuntimeError(f"churn int8: launches {launches} != {want} "
+                           f"(wire {summary['compression']})")
+    log(f"  churn --compress int8 --mode plan: {R} rounds, records equal to "
+        f"the CPU's; launches weighted_agg_quant "
+        f"{launches['weighted_agg_quant']}, weighted_agg "
+        f"{launches['weighted_agg']}, masked_sgd {launches['masked_sgd']}; "
+        f"rounds/s {summary['rounds_per_sec']}")
+
+    total = make_scenario("rotation").n_rounds
+    scenario_cli(["--scenario", "rotation", "--rounds", str(SCENARIO_CUT)],
+                 dev, out / "rotation-cut")
+    summary, launches, history, params = scenario_cli(
+        ["--scenario", "rotation", "--restore", str(out / "rotation-cut"),
+         "--rounds", str(total - SCENARIO_CUT)], dev,
+        out / "rotation-resumed")
+    want_history, want_params = uncut["rotation"]
+    same_run_records("rotation resumed", history, want_history)
+    n_diff = sum(int(np.sum(params[k] != v)) for k, v in want_params.items())
+    R = total - SCENARIO_CUT
+    want = expected_launches(weighted_agg=R,
+                             masked_sgd=R * leaves * SYNTHETIC_LR.local_epochs)
+    if n_diff or launches != want or summary["resumed_from"] != SCENARIO_CUT:
+        raise RuntimeError(f"rotation resumed at {summary['resumed_from']}: "
+                           f"{n_diff} params differ from the uncut run's, "
+                           f"launches {launches} != {want}")
+    log(f"  rotation cut at tau {SCENARIO_CUT} and restored onto the card: "
+        f"records of all {total} rounds equal the uncut run's, 0 param "
+        f"elements differ; launches over the resumed rounds weighted_agg "
+        f"{launches['weighted_agg']}, masked_sgd {launches['masked_sgd']}")
+    log(f"  scenario phase: {time.perf_counter() - t0:.1f} s")
+
+
+# -- 12. timing ---------------------------------------------------------------
 def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for `spin` cycles (a few tens
@@ -3107,6 +3275,7 @@ def main() -> None:
     serve_launches = serve_path(dev, planted)
     ssm_launches = ssm_serve_path(dev, planted_ssd)
     checkpoint_path(dev, len(leaves), card)
+    scenario_path(dev, card)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)

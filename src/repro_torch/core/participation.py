@@ -1,11 +1,12 @@
 """Device-participation models (paper §5.1, Table 2).
 
-Copy of the reference's ``Trace``/``TRACES`` (``repro/core/participation.py``).
+Copy of the reference's ``repro/core/participation.py``: ``Trace``/``TRACES``,
+``sample_alpha``, ``assign_traces`` and ``BernoulliParticipation``.
 Each trace is a distribution over the fraction of the E required local
 epochs a device completes in a round; the means are a reconstruction (the
 paper's column did not survive extraction), the stdevs are the paper's.
-``sample_s`` consumes the numpy RNG in exactly the reference's order, so a
-seed gives both packages the same participation stream.
+Every sampler consumes the numpy RNG in exactly the reference's order, so
+a seed gives both packages the same participation stream.
 """
 from __future__ import annotations
 
@@ -63,3 +64,28 @@ TRACES: Sequence[Trace] = (
     Trace("bw_med", 0.65, 0.223, 0.20),
     Trace("bw_high", 0.80, 0.183, 0.10),
 )
+
+
+def sample_alpha(rng: np.random.Generator, traces: Sequence[Trace],
+                 E: int) -> np.ndarray:
+    """One round of participation masks in the equivalent view (paper
+    App. A.1.1): (C, E) float32 with alpha[c, :s_c] = 1."""
+    s = np.array([t.sample_s(rng, E) for t in traces])
+    return (np.arange(E)[None, :] < s[:, None]).astype(np.float32)
+
+
+def assign_traces(rng: np.random.Generator, n_clients: int,
+                  n_traces: int) -> list:
+    """Paper §5.2: |T| = j uses the first j traces, randomly assigned."""
+    idx = rng.integers(0, n_traces, size=n_clients)
+    return [TRACES[i] for i in idx]
+
+
+class BernoulliParticipation:
+    """alpha_t ~ iid Bernoulli(q), so s ~ Bin(E, q) (paper App. A.1.1)."""
+
+    def __init__(self, q: float):
+        self.q = q
+
+    def sample_alpha(self, rng: np.random.Generator, C: int, E: int):
+        return (rng.random((C, E)) < self.q).astype(np.float32)

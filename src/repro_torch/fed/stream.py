@@ -52,6 +52,32 @@ from repro_torch.fed.task import ArrayTask
 # chunk_size from every checkpoint's config
 REFERENCE_CHUNK_SIZE = 16
 
+# the reference's scheduler arguments the port does not have yet, with the
+# ROADMAP item that brings each
+UNPORTED = {"telemetry": "ROADMAP item 4, obs/",
+            "bank": "ROADMAP item 4, fed/bank.py",
+            "prefetch": "ROADMAP item 4, fed/bank.py",
+            "injector": "ROADMAP item 4, fed/faults.py",
+            "log_spans": "ROADMAP item 5, fed/fuzz.py"}
+# the reference's jax-only arguments: Pallas interpret mode and buffer
+# donation have no meaning in the port (a CPU tensor takes a kernel's plain
+# version; torch frees what it no longer references)
+JAX_ONLY = ("interpret", "donate")
+
+
+def refuse_unported(**given) -> None:
+    """Raise ValueError for any of the reference's scheduler arguments
+    that the port has not ported (UNPORTED) or that only jax has
+    (JAX_ONLY), unless it is at its null default (None or False)."""
+    for name, value in given.items():
+        if value is None or value is False:
+            continue
+        if name in UNPORTED:
+            raise ValueError(f"{name}={value!r}: not ported yet "
+                             f"({UNPORTED[name]}); pass None")
+        raise ValueError(f"{name}={value!r} is a jax-only argument of the "
+                         f"reference; the port accepts only None")
+
 
 class StreamScheduler:
     """Consumes a stream of ParticipationEvents while driving
@@ -68,34 +94,74 @@ class StreamScheduler:
     ``delta_norms`` holds each round's delta norm.  ``state`` (a
     ``FedState``, as ``restore`` passes) replaces the fresh one the other
     arguments would build, ``clients`` included.
+
+    Without ``engine`` the scheduler builds its RoundEngine as the
+    reference's does, from ``loss_fn`` or ``task``, ``capacity``,
+    ``max_samples``, ``local_epochs``, ``batch_size``, ``scheme``,
+    ``eta0``, ``agg``, ``compression``, ``with_metrics``, ``engine_mode``
+    and ``sharding``, plus the port's ``device`` (the CUDA device unless
+    ``"cpu"``) and ``model_kind``; ``chunk_size`` is accepted and has no
+    effect (the port has no scan chunks).  ``telemetry``, ``bank``,
+    ``prefetch``, ``injector`` and ``log_spans`` (not ported yet) and
+    ``interpret`` and ``donate`` (jax's) are accepted only at their null
+    defaults: anything else raises ValueError (``refuse_unported``).
     """
 
     def __init__(self, *, clients: Sequence[Client] = (), init_params,
-                 engine: RoundEngine, mode: str = "device",
+                 engine: Optional[RoundEngine] = None,
+                 loss_fn: Optional[Callable] = None,
+                 task=None, engine_mode: str = "client_parallel",
+                 eval_fn: Optional[Callable] = None,
+                 capacity: Optional[int] = None,
+                 max_samples: Optional[int] = None,
+                 sharding=None,
+                 local_epochs: int = 5, batch_size: int = 10,
+                 scheme: str = "C", eta0: float = 0.01,
+                 chunk_size: int = REFERENCE_CHUNK_SIZE, agg: str = "auto",
+                 interpret=None, donate: Optional[bool] = None,
+                 compression=None, with_metrics: bool = False,
                  reboot_boost: float = 3.0, fast_reboot: bool = True,
                  horizon: Optional[int] = None,
-                 bound_terms: Optional[BoundTerms] = None, seed: int = 0,
-                 rng: Optional[np.random.Generator] = None, key=None,
-                 evaluate: Optional[Callable] = None,
-                 eval_fn: Optional[Callable] = None,
+                 bound_terms: Optional[BoundTerms] = None,
+                 seed: int = 0, mode: str = "device",
+                 rng: Optional[np.random.Generator] = None,
+                 key=None, evaluate: Optional[Callable] = None,
                  history: Optional[List[RoundRecord]] = None,
                  reboots: Optional[List[RebootState]] = None,
                  objective: Optional[set] = None,
                  state: Optional[FedState] = None,
-                 events: Sequence[ParticipationEvent] = ()):
+                 events: Sequence[ParticipationEvent] = (),
+                 injector=None, log_spans: bool = False,
+                 telemetry=None, bank=None, prefetch: bool = False,
+                 device=None, model_kind: Optional[str] = None):
         if mode not in ("device", "plan"):
             raise ValueError(f"mode must be device|plan, got {mode!r}")
+        refuse_unported(telemetry=telemetry, bank=bank, prefetch=prefetch,
+                        injector=injector, log_spans=log_spans,
+                        interpret=interpret, donate=donate)
         self.mode = mode
+        clients = list(clients) if state is None else state.clients
+        if engine is None:
+            # chunk_size has no effect: the port runs a span's rounds one
+            # after another (engine_config records the reference's default)
+            engine = RoundEngine(
+                loss_fn=loss_fn, task=task, clients=clients,
+                local_epochs=local_epochs, batch_size=batch_size,
+                scheme=scheme, eta0=eta0, agg=agg, compression=compression,
+                with_metrics=with_metrics, capacity=capacity,
+                max_samples=max_samples, sharding=sharding, mode=engine_mode,
+                device=device, model_kind=model_kind)
         self.engine = engine
         self.E = engine.E
         self.B = engine.B
+        self.eta0 = engine.eta0
         self.params = init_params
         self._evaluate = evaluate
         self.eval_fn = eval_fn
         self._eval_cache = None         # (objective_version, x, y)
         if state is None:
             state = FedState(
-                clients=list(clients), capacity=engine.capacity,
+                clients=clients, capacity=engine.capacity,
                 reboot_boost=reboot_boost, fast_reboot=fast_reboot,
                 horizon=horizon, bound_terms=bound_terms,
                 local_epochs=engine.E, seed=seed, rng=rng, key=key,
@@ -126,6 +192,18 @@ class StreamScheduler:
         return self.state.slot_of
 
     @property
+    def client_at(self):
+        return self.state.client_at
+
+    @property
+    def free_slots(self):
+        return self.state.free_slots
+
+    @property
+    def reboots(self) -> List[RebootState]:
+        return self.state.reboots
+
+    @property
     def lr_shift_tau(self) -> int:
         return self.state.lr_shift_tau
 
@@ -134,9 +212,23 @@ class StreamScheduler:
         return self.state.events_applied
 
     @property
+    def rng(self) -> np.random.Generator:
+        return self.state.rng
+
+    @property
     def next_tau(self) -> int:
         """The round the next run() starts at."""
         return self.state.next_tau
+
+    # the reference's private names for the same two views
+    _next_tau = next_tau
+
+    @property
+    def _queue(self):
+        return self.state.queue
+
+    def data_weights(self) -> np.ndarray:
+        return self.state.data_weights()
 
     @property
     def pending(self) -> int:

@@ -35,6 +35,9 @@ class ClientTask:
     client_arrays(c) — dict name -> (n, *spec.shape) arrays for a Client.
     make_batch(g)    — map gathered buffers (each (..., B) + spec.shape)
                        to the loss_fn batch.
+    init_params(key) — fresh parameter dict.
+    param_specs(p)   — per-leaf placement specs, or None to replicate (the
+                       paper models; the port shards no params yet).
     """
 
     buffers: Dict[str, BufferSpec] = {}
@@ -48,14 +51,22 @@ class ClientTask:
     def make_batch(self, gathered: Dict[str, Any]):
         return gathered
 
+    def init_params(self, key):
+        raise NotImplementedError
+
+    def param_specs(self, params):
+        return None
+
 
 class ArrayTask(ClientTask):
     """Feature/label clients for the paper's small models:
-    ``loss_fn(params, {"x": ..., "y": ...})``."""
+    ``loss_fn(params, {"x": ..., "y": ...})``; ``init_fn(key)``, where
+    given, draws the params ``init_params`` returns."""
 
     def __init__(self, loss_fn, feature_shape: Tuple[int, ...], *,
-                 label_dtype=np.int32):
+                 init_fn=None, label_dtype=np.int32):
         self._loss_fn = loss_fn
+        self._init_fn = init_fn
         self.buffers = {"x": BufferSpec(tuple(feature_shape), np.float32),
                         "y": BufferSpec((), label_dtype)}
 
@@ -65,3 +76,8 @@ class ArrayTask(ClientTask):
     def client_arrays(self, client):
         return {"x": np.asarray(client.x, np.float32),
                 "y": np.asarray(client.y, self.buffers["y"].dtype)}
+
+    def init_params(self, key):
+        if self._init_fn is None:
+            raise NotImplementedError("ArrayTask built without init_fn")
+        return self._init_fn(key)

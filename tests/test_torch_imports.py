@@ -28,7 +28,8 @@ for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
              "repro_torch.data.synthetic",
              "repro_torch.benchmarks.paper_tables",
              "repro_torch.benchmarks.bound_check",
-             "repro_torch.benchmarks.reference"):
+             "repro_torch.benchmarks.reference",
+             "repro_torch.fed.scenarios", "repro_torch.launch.fed_stream"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -113,3 +114,19 @@ def test_serving_entry_points_refuse_to_run_without_cuda(monkeypatch):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         transformer.init_cache(cfg, 1, 8)
+
+
+def test_streaming_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    from repro_torch.fed.scenarios import build_scheduler, make_scenario
+    from repro_torch.launch import fed_stream
+
+    sc = make_scenario("flash-crowd", n_rounds=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed_stream.main(["--scenario", "flash-crowd", "--rounds", "1",
+                         "--quiet"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_scheduler(sc)
+    # asked for, the CPU runs
+    assert fed_stream.main(["--scenario", "flash-crowd", "--rounds", "1",
+                            "--quiet", "--device", "cpu"])["rounds"] == 1
