@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
 round in plan and device mode, the compressed federated round, the client-sharded round, the
 paper's experiments with the client-sequential round, LM serving,
-Mamba2 SSD serving, the streamed federation's checkpoint and resume, and the
-streaming scenario library through its CLI.
+Mamba2 SSD serving, the streamed federation's checkpoint and resume, the
+streaming scenario library through its CLI, and the tiered client bank
+with its cohort prefetch and the telemetry.
 
     python3 chip_smoke.py
 
@@ -143,7 +144,36 @@ it, and nothing of JAX or of the JAX package.  In order it
    --mode plan`` (weighted_agg_quant once a round, weighted_agg never,
    the CPU's records), and rotation saved at SCENARIO_CUT and restored
    onto the card (records equal to the uncut run's, params bit-identical);
-12. times each kernel beside its bound, its plain version and the one
+12. drives the tiered client bank and its cohort prefetch (staged on a CUDA
+   stream of the stager's own from pinned memory) and the telemetry:
+   (a) make_clients' 62-client EMNIST fleet at full width through BANK_HOT
+   capacity slots of a ``StreamScheduler(model_kind="cnn",
+   prefetch=True)`` on the reference's rotation schedule (dwell
+   BANK_DWELL, BANK_ROUNDS rounds, every event pushed at the start), in
+   plan and device mode, each against the same schedule on the same slots
+   without a bank: equal records, params bit-identical, launches
+   weighted_agg once and masked_sgd 8 leaves x E a round,
+   ``prefetch_stats()`` with no staging error, no miss and a hit per
+   arrival; in plan mode also against all 62 clients resident (equal
+   records, the extra slots' s zero, params within PARAM_TOL, the count of
+   differing elements printed); warm rounds/s without and with prefetch in
+   turns, with the stager's stage and wait seconds and overlap fraction;
+   (b) each scenario at its defaults through fed_stream with
+   ``--prefetch`` (rotation also with ``--bank``): records equal and
+   params bit-identical to step 11's card run, no staging error, no miss
+   in flash-crowd and rotation, the bank's summary beside step 11's
+   rounds/s; (c) rotation with ``--prefetch`` saved at SCENARIO_CUT
+   (fed-checkpoint-v2, one chunk per client) and restored onto the card
+   with its bank and stager rebuilt: records equal and params
+   bit-identical to the uncut run's, a flipped byte of one client chunk
+   refused (CorruptCheckpointError); (d) flash-crowd with
+   ``--metrics-out`` and ``--prom-out``: ``fed_wire_bytes_total`` equal to
+   ``wire_bytes(D)`` times the uploads counted from the records, the
+   ``span_seconds{name="sched.run_span"}`` count equal to
+   ``sched_spans_total``, params bit-identical to the run without
+   telemetry, and one span under ``Telemetry(trace_dir=)`` whose Chrome
+   trace names weighted_agg and masked_sgd;
+13. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (weighted_agg_quant from
    device memory and, beside it, from L2; for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
@@ -420,6 +450,15 @@ CKPT_LEGS = (("device", None), ("plan", None), ("device", "int8"))
 # the streaming scenarios: rotation (60 rounds) is cut here, saved and
 # restored onto the card
 SCENARIO_CUT = 30
+# the client bank: the EMNIST fleet rotates through BANK_HOT slots (the
+# reference's rotation schedule: every BANK_DWELL rounds the oldest
+# resident departs and the next member arrives) over BANK_ROUNDS rounds;
+# warm rounds/s in BANK_TURNS rounds of turns
+BANK_HOT = 16
+BANK_DWELL = 2
+BANK_ROUNDS = 24
+BANK_EVAL_EVERY = 8
+BANK_TURNS = 2
 # the reference's quickstart (examples/quickstart.py): SYNTHETIC(1, 1), 20
 # clients, logreg, scheme C, E 5, B 20, eta0 1.0, 50 rounds, eval every 5;
 # its accuracy after 50 rounds as the verify notes give it, and how far the
@@ -2684,9 +2723,11 @@ def first_span_against_cpu(name: str, dev) -> float:
     return d
 
 
-def scenario_path(dev, card: str) -> None:
+def scenario_path(dev, card: str) -> dict:
     """Phase 11: the five scenarios through fed_stream on the card and the
-    CPU, churn on the int8 wire in plan mode, rotation cut and resumed."""
+    CPU, churn on the int8 wire in plan mode, rotation cut and resumed.
+    Returns each scenario's card run: {name: (history, params,
+    summary)}."""
     from repro_torch.configs.paper import SYNTHETIC_LR
     from repro_torch.fed.scenarios import SCENARIOS, make_scenario
     t0 = time.perf_counter()
@@ -2716,7 +2757,7 @@ def scenario_path(dev, card: str) -> None:
             raise RuntimeError(f"{name}: launches {launches} != {want}")
         first = first_span_against_cpu(name, dev)
         final = param_tols(params, c_params)
-        uncut[name] = (history, params)
+        uncut[name] = (history, params, summary)
         log(f"  {name} ({sc.notes}): {R} rounds, {summary['events_applied']} "
             f"events, clients_end {summary['clients_end']}, records equal "
             f"to the CPU's; launches weighted_agg {launches['weighted_agg']}, "
@@ -2751,7 +2792,7 @@ def scenario_path(dev, card: str) -> None:
         ["--scenario", "rotation", "--restore", str(out / "rotation-cut"),
          "--rounds", str(total - SCENARIO_CUT)], dev,
         out / "rotation-resumed")
-    want_history, want_params = uncut["rotation"]
+    want_history, want_params, _ = uncut["rotation"]
     same_run_records("rotation resumed", history, want_history)
     n_diff = sum(int(np.sum(params[k] != v)) for k, v in want_params.items())
     R = total - SCENARIO_CUT
@@ -2766,9 +2807,339 @@ def scenario_path(dev, card: str) -> None:
         f"elements differ; launches over the resumed rounds weighted_agg "
         f"{launches['weighted_agg']}, masked_sgd {launches['masked_sgd']}")
     log(f"  scenario phase: {time.perf_counter() - t0:.1f} s")
+    return uncut
 
 
-# -- 12. timing ---------------------------------------------------------------
+# -- 12. the tiered client bank and its cohort prefetch ----------------------
+def bank_scheduler(dev, mode: str, capacity: int, prefetch: bool):
+    """The EMNIST fleet (make_clients' 62 clients at full width) on a
+    scheduler-built engine of ``capacity`` slots, the first BANK_HOT
+    founding and the rotation schedule pushed at the start."""
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.fed import StreamScheduler
+    from repro_torch.fed.scenarios import rotation_events
+    from repro_torch.models.small import init_small, make_loss_fn
+    clients = make_clients()
+    for c in clients:                   # the events below say who moves
+        c.active_from, c.departs_at = 0, None
+    return StreamScheduler(
+        clients=clients[:BANK_HOT],
+        init_params=init_small(cfg, seed=0, device=dev),
+        loss_fn=make_loss_fn(cfg), eval_fn=emnist_eval, capacity=capacity,
+        max_samples=max(c.n for c in clients),
+        local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
+        scheme="C", eta0=cfg.eta0, seed=0, mode=mode, prefetch=prefetch,
+        model_kind=cfg.kind, device=dev,
+        events=rotation_events(clients, BANK_HOT, BANK_DWELL, BANK_ROUNDS))
+
+
+def check_stager(label: str, stats: dict, misses: bool = True) -> dict:
+    """No staging error (a failed copy or launch on the staging thread would
+    otherwise pass as a slower miss), and with ``misses`` no miss."""
+    stager = stats["stager"]
+    if stager["stage_errors"] or (misses and stats["misses"]):
+        raise RuntimeError(f"{label}: stage_errors "
+                           f"{stager['stage_errors']}, misses "
+                           f"{stats['misses']}")
+    return stager
+
+
+def stager_line(stats: dict) -> str:
+    st = stats["stager"]
+    return (f"hits {stats['hits']}, misses {stats['misses']}, "
+            f"{st['cohorts_staged']} cohorts of {st['rows_staged']} rows, "
+            f"stage {st['stage_seconds_total']:.6f} s, wait "
+            f"{st['wait_seconds_total']:.6f} s, overlap "
+            f"{st['overlap_fraction']:.4f}, superseded {st['superseded']}")
+
+
+def bank_fleet(dev, card: str, n_leaves: int) -> None:
+    """Phase 12 (a): the EMNIST fleet through BANK_HOT slots with prefetch,
+    in plan and device mode, against the same schedule on the same slots
+    without a bank (bit-identical params) and, in plan mode, against all 62
+    clients resident (params within PARAM_TOL); warm rounds/s in turns."""
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.kernels import ops
+    arrivals = len(range(BANK_DWELL, BANK_ROUNDS, BANK_DWELL))
+    for mode in ("plan", "device"):
+        label = f"EMNIST fleet {mode}"
+        plain = bank_scheduler(dev, mode, BANK_HOT, prefetch=False)
+        plain.run(BANK_ROUNDS, eval_every=BANK_EVAL_EVERY)
+        banked = bank_scheduler(dev, mode, BANK_HOT, prefetch=True)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        banked.run(BANK_ROUNDS, eval_every=BANK_EVAL_EVERY)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        banked.close()
+        want = expected_launches(
+            weighted_agg=BANK_ROUNDS,
+            masked_sgd=BANK_ROUNDS * n_leaves * cfg.local_epochs)
+        if launches != want:
+            raise RuntimeError(f"{label}: launches {launches} != {want}")
+        stats = banked.prefetch_stats()
+        stager = check_stager(label, stats)
+        if stats["hits"] != arrivals:
+            raise RuntimeError(f"{label}: {stats['hits']} prefetch hits, "
+                               f"{arrivals} arrivals")
+        same_run_records(label, banked.history, plain.history)
+        for a, b in zip(banked.history, plain.history):
+            if not math.isnan(a.loss) and (a.loss, a.acc) != (b.loss, b.acc):
+                raise RuntimeError(f"{label}: eval at tau={a.tau} differs")
+        n_diff, err = differing(banked.params, plain.params)
+        if n_diff:
+            raise RuntimeError(f"{label}: {n_diff} param elements differ "
+                               f"from the unbanked run's (max {err:.3e})")
+        bank = stats["bank"]
+        cohort = 1 << (stager["rows_staged"] - 1).bit_length()
+        log(f"  {label}: {len(banked.clients)} clients through "
+            f"{banked.engine.capacity} slots, {arrivals} arrivals; records "
+            f"equal, 0 of {sum(p.numel() for p in banked.params.values())} "
+            f"param elements differ from the unbanked run's; launches "
+            f"weighted_agg {launches['weighted_agg']}, masked_sgd "
+            f"{launches['masked_sgd']}; bank {bank['clients']} clients, "
+            f"{bank['resident_bytes']} bytes ({bank['row_nbytes']} a row); "
+            f"{stager_line(stats)}; first cohort padded to {cohort} rows, "
+            f"{cohort * bank['row_nbytes']} bytes")
+        if mode == "plan":
+            big = bank_scheduler(dev, mode, N_CLIENTS, prefetch=False)
+            big.run(BANK_ROUNDS, eval_every=BANK_EVAL_EVERY)
+            torch.cuda.synchronize()
+            if any(h.s[BANK_HOT:].any() for h in big.history):
+                raise RuntimeError(f"{label}: a slot past {BANK_HOT} trained")
+            same_run_records(f"{label} against 62 resident", banked.history,
+                             [dataclasses.replace(h, s=h.s[:BANK_HOT])
+                              for h in big.history])
+            n_diff, err = differing(banked.params, big.params)
+            for name, v in big.params.items():
+                torch.testing.assert_close(banked.params[name], v,
+                                           **PARAM_TOL, msg=f"{label} {name}")
+            log(f"  {label} against all {N_CLIENTS} clients resident: "
+                f"records equal (the extra slots' s all 0), params within "
+                f"PARAM_TOL: {n_diff} elements differ, max {err:.3e} (a "
+                f"{BANK_HOT}-client and a {N_CLIENTS}-client batch of the "
+                f"CNN sum in other orders)")
+            del big
+        del plain, banked
+        torch.cuda.empty_cache()
+
+    rates = {False: [], True: []}
+    staged = []
+    for prefetch in [False, True, True, False] * BANK_TURNS:
+        sch = bank_scheduler(dev, "device", BANK_HOT, prefetch=prefetch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sch.run(BANK_ROUNDS, eval_every=NO_EVAL)
+        torch.cuda.synchronize()
+        rates[prefetch].append(BANK_ROUNDS / (time.perf_counter() - t0))
+        sch.close()
+        if prefetch:
+            stats = sch.prefetch_stats()
+            check_stager("EMNIST fleet timed", stats)
+            staged.append(stats["stager"])
+        del sch
+    def listed(values, digits):
+        return ", ".join(f"{v:.{digits}f}" for v in values)
+    log(f"  EMNIST fleet, device mode, {BANK_ROUNDS} rounds a window, no "
+        f"eval, in turns (plain, prefetch, prefetch, plain) x {BANK_TURNS}: "
+        f"rounds/s without a bank {listed(rates[False], 3)}; with prefetch "
+        f"{listed(rates[True], 3)}; stage seconds "
+        f"{listed([st['stage_seconds_total'] for st in staged], 6)}; wait "
+        f"seconds {listed([st['wait_seconds_total'] for st in staged], 6)}; "
+        f"overlap {listed([st['overlap_fraction'] for st in staged], 4)}; "
+        f"on {card}")
+
+
+def bank_scenarios(dev, card: str, uncut: dict) -> None:
+    """Phase 12 (b): every scenario at its defaults with --prefetch (and
+    rotation with --bank alone) through fed_stream on the card, against
+    step 11's runs without a bank."""
+    from repro_torch.configs.paper import SYNTHETIC_LR
+    from repro_torch.fed.scenarios import SCENARIOS
+    out = ROOT / "build" / "bank"
+    leaves = 2
+    for name in SCENARIOS:
+        for flag in ["--prefetch"] + (["--bank"] if name == "rotation"
+                                      else []):
+            label = f"{name} {flag}"
+            summary, launches, history, params = scenario_cli(
+                ["--scenario", name, flag], dev, out / f"{name}{flag}")
+            want_history, want_params, want_summary = uncut[name]
+            same_run_records(label, history, want_history)
+            for a, b in zip(history, want_history):
+                if not math.isnan(a.loss) and a.loss != b.loss:
+                    raise RuntimeError(f"{label}: eval at tau={a.tau}")
+            n_diff = sum(int(np.sum(params[k] != v))
+                         for k, v in want_params.items())
+            R = summary["rounds"]
+            want = expected_launches(
+                weighted_agg=R,
+                masked_sgd=R * leaves * SYNTHETIC_LR.local_epochs)
+            if n_diff or launches != want:
+                raise RuntimeError(f"{label}: {n_diff} params differ from "
+                                   f"the unbanked run's, launches "
+                                   f"{launches} != {want}")
+            bank = summary["bank"]
+            detail = f"bank {bank['bank']['clients']} clients"
+            if flag == "--prefetch":
+                check_stager(label, bank,
+                             misses=name in ("flash-crowd", "rotation"))
+                detail += f", {stager_line(bank)}"
+            elif "stager" in bank:
+                raise RuntimeError(f"{label}: a stager without --prefetch")
+            log(f"  {label}: records equal and 0 param elements differ from "
+                f"step 11's card run; launches weighted_agg "
+                f"{launches['weighted_agg']}, masked_sgd "
+                f"{launches['masked_sgd']}; {detail}; rounds/s "
+                f"{summary['rounds_per_sec']} (step 11: "
+                f"{want_summary['rounds_per_sec']})")
+
+
+def bank_checkpoint(dev, uncut: dict) -> None:
+    """Phase 12 (c): rotation with --prefetch saved at SCENARIO_CUT (v2,
+    one chunk per client), restored onto the card with its bank and stager
+    rebuilt, against the uncut run; a flipped byte of a chunk refused."""
+    import shutil
+    from repro_torch.checkpoint import CorruptCheckpointError
+    from repro_torch.configs.paper import SYNTHETIC_LR
+    from repro_torch.fed import StreamScheduler
+    from repro_torch.fed.scenarios import make_scenario
+    from repro_torch.models.small import make_loss_fn
+    out = ROOT / "build" / "bank"
+    total = make_scenario("rotation").n_rounds
+    cut = out / "rotation-prefetch-cut"
+    _, _, cut_history, _ = scenario_cli(
+        ["--scenario", "rotation", "--prefetch", "--rounds",
+         str(SCENARIO_CUT)], dev, cut)
+    manifest = json.loads((cut / "fed_manifest.json").read_text())
+    chunks = sorted((cut / "clients").glob("client-*.npz"))
+    cfg = manifest["config"]
+    if manifest["format"] != "fed-checkpoint-v2" or not cfg["bank"] \
+            or not cfg["prefetch"] \
+            or len(chunks) != len(manifest["client_chunks"]):
+        raise RuntimeError(f"rotation --prefetch at tau {SCENARIO_CUT}: "
+                           f"{manifest['format']}, bank {cfg['bank']}, "
+                           f"prefetch {cfg['prefetch']}, {len(chunks)} "
+                           f"chunk files for "
+                           f"{len(manifest['client_chunks'])} clients")
+    summary, launches, history, params = scenario_cli(
+        ["--scenario", "rotation", "--restore", str(cut), "--rounds",
+         str(total - SCENARIO_CUT)], dev, out / "rotation-prefetch-resumed")
+    want_history, want_params, _ = uncut["rotation"]
+    same_run_records("rotation --prefetch resumed", history, want_history)
+    n_diff = sum(int(np.sum(params[k] != v)) for k, v in want_params.items())
+    if n_diff or summary["resumed_from"] != SCENARIO_CUT:
+        raise RuntimeError(f"rotation --prefetch resumed at "
+                           f"{summary['resumed_from']}: {n_diff} params "
+                           f"differ from the uncut run's")
+    if "stager" not in summary["bank"]:
+        raise RuntimeError("the restored rotation has no stager")
+    check_stager("rotation --prefetch resumed", summary["bank"])
+    bad = out / "rotation-prefetch-flipped"
+    shutil.rmtree(bad, ignore_errors=True)
+    shutil.copytree(cut, bad)
+    chunk = sorted((bad / "clients").glob("client-*.npz"))[len(chunks) // 2]
+    raw = bytearray(chunk.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    chunk.write_bytes(bytes(raw))
+    try:
+        StreamScheduler.restore(str(bad), loss_fn=make_loss_fn(SYNTHETIC_LR),
+                                model_kind=SYNTHETIC_LR.kind)
+    except CorruptCheckpointError as e:
+        caught = ("CorruptCheckpointError, checksum" if "checksum" in str(e)
+                  else f"CorruptCheckpointError: {e}")
+    else:
+        raise RuntimeError("a bank checkpoint with a flipped byte in "
+                           f"{chunk.name} was restored")
+    log(f"  rotation --prefetch cut at tau {SCENARIO_CUT}: "
+        f"{manifest['format']}, {len(chunks)} client chunks, config bank "
+        f"and prefetch true; restored onto the card with its bank "
+        f"({summary['bank']['bank']['clients']} clients) and stager rebuilt: "
+        f"records of all {total} rounds equal the uncut run's, 0 param "
+        f"elements differ; {stager_line(summary['bank'])}; a flipped byte "
+        f"in {chunk.name} refused ({caught})")
+
+
+def bank_telemetry(dev, uncut: dict) -> None:
+    """Phase 12 (d): flash-crowd with --metrics-out and --prom-out: the
+    wire counter against the records, the run_span histogram against the
+    span counter, params bit-identical to the run without telemetry; one
+    span under Telemetry(trace_dir=)."""
+    from repro_torch.core.compression import wire_bytes
+    from repro_torch.fed.scenarios import build_scheduler, make_scenario
+    from repro_torch.obs import Telemetry
+    out = ROOT / "build" / "bank"
+    out.mkdir(parents=True, exist_ok=True)
+    jsonl, prom = out / "flash-crowd.jsonl", out / "flash-crowd.prom"
+    for path in (jsonl, prom):
+        path.unlink(missing_ok=True)
+    summary, _, history, params = scenario_cli(
+        ["--scenario", "flash-crowd", "--metrics-out", str(jsonl),
+         "--prom-out", str(prom)], dev, out / "flash-crowd-telemetry")
+    recs = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    metrics = {r["name"]: r for r in recs if r["kind"] != "span"}
+    D = sum(int(np.asarray(v).size) for v in params.values())
+    uploads = sum(int((np.asarray(h.s) > 0).sum()) for h in history)
+    (wire,) = metrics["fed_wire_bytes_total"]["samples"]
+    want_wire = wire_bytes(D, summary["compression"], n_clients=uploads)
+    spans = {s["labels"]["name"]: s["count"]
+             for s in metrics["span_seconds"]["samples"]}
+    (sched_spans,) = metrics["sched_spans_total"]["samples"]
+    if wire["value"] != want_wire or \
+            wire["labels"] != {"wire": summary["compression"]}:
+        raise RuntimeError(f"fed_wire_bytes_total {wire} != wire_bytes({D}) "
+                           f"x {uploads} uploads = {want_wire}")
+    if spans["sched.run_span"] != sched_spans["value"]:
+        raise RuntimeError(f"{spans['sched.run_span']} sched.run_span spans, "
+                           f"sched_spans_total {sched_spans['value']}")
+    line = f'fed_wire_bytes_total{{wire="{summary["compression"]}"}} '
+    if line + str(want_wire) not in prom.read_text().splitlines():
+        raise RuntimeError(f"{prom.name} lacks {line}{want_wire}")
+    _, want_params, _ = uncut["flash-crowd"]
+    n_diff = sum(int(np.sum(params[k] != v)) for k, v in want_params.items())
+    if n_diff:
+        raise RuntimeError(f"flash-crowd with telemetry: {n_diff} params "
+                           f"differ from the run without")
+    trace_dir = out / "trace"
+    for old in trace_dir.glob("*.json"):
+        old.unlink()
+    sch = build_scheduler(make_scenario("flash-crowd"), device=dev,
+                          telemetry=Telemetry(trace_dir=str(trace_dir)))
+    sch.run(1, eval_every=NO_EVAL)
+    torch.cuda.synchronize()
+    (trace,) = trace_dir.glob("run_span-*.json")
+    text = trace.read_text()
+    named = [k for k in ("weighted_agg", "masked_sgd") if k in text]
+    if len(named) != 2:
+        raise RuntimeError(f"{trace.name} names only {named}")
+    log(f"  flash-crowd --metrics-out --prom-out: fed_wire_bytes_total"
+        f"{{wire=\"{summary['compression']}\"}} {wire['value']:.0f} = "
+        f"wire_bytes({D}) x {uploads} uploads counted from the records; "
+        f"span_seconds{{name=\"sched.run_span\"}} count "
+        f"{spans['sched.run_span']} = sched_spans_total; span counts "
+        f"{dict(sorted(spans.items()))}; {len(recs)} JSONL lines, "
+        f"{len(prom.read_text().splitlines())} prom lines; params "
+        f"bit-identical to the run without telemetry; one span under "
+        f"Telemetry(trace_dir=): {trace.name}, {trace.stat().st_size} "
+        f"bytes, naming weighted_agg and masked_sgd")
+
+
+def bank_path(dev, card: str, n_leaves: int, uncut: dict) -> None:
+    """Phase 12: the tiered client bank with its prefetch on a CUDA staging
+    stream, and the telemetry, through the entry points."""
+    t0 = time.perf_counter()
+    log(f"client bank and prefetch: the EMNIST fleet ({N_CLIENTS} clients) "
+        f"through {BANK_HOT} slots on the reference's rotation (dwell "
+        f"{BANK_DWELL}, {BANK_ROUNDS} rounds), the scenarios with --prefetch, "
+        f"a bank checkpoint and telemetry; on {card}")
+    bank_fleet(dev, card, n_leaves)
+    bank_scenarios(dev, card, uncut)
+    bank_checkpoint(dev, uncut)
+    bank_telemetry(dev, uncut)
+    log(f"  bank phase: {time.perf_counter() - t0:.1f} s")
+
+
+# -- 13. timing ---------------------------------------------------------------
 def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for `spin` cycles (a few tens
@@ -3275,7 +3646,8 @@ def main() -> None:
     serve_launches = serve_path(dev, planted)
     ssm_launches = ssm_serve_path(dev, planted_ssd)
     checkpoint_path(dev, len(leaves), card)
-    scenario_path(dev, card)
+    uncut = scenario_path(dev, card)
+    bank_path(dev, card, len(leaves), uncut)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)

@@ -38,6 +38,12 @@ The durability contract:
 ``injector`` is a fault-injection hook: any object with ``fire(site,
 **kw)``; it fires at ``ckpt_save`` (a file staged, before its rename) and
 ``ckpt_written`` (the checkpoint committed), as the reference's does.
+
+``telemetry`` (``repro_torch.obs``; None is the null default) times the
+spans ``ckpt.save`` and ``ckpt.load`` and counts the reference's
+``ckpt_saves_total``, ``ckpt_save_bytes_total`` (the npz and every client
+chunk), ``ckpt_loads_total``, ``ckpt_load_bytes_total`` (the npz) and
+``ckpt_checksum_failures_total`` (loads refused as corrupt).
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ import os
 
 import numpy as np
 import torch
+
+from repro_torch.obs.telemetry import resolve as resolve_telemetry
 
 _ARRAY_KEY = "__npz__"
 _TUPLE_KEY = "__tuple__"
@@ -322,7 +330,7 @@ def _verify_npz(path: str, manifest: dict) -> None:
 def save_fed_checkpoint(path: str, params, state: dict, *,
                         history: dict = None, config: dict = None,
                         extra: dict = None, injector=None,
-                        client_chunks: bool = False) -> None:
+                        telemetry=None, client_chunks: bool = False) -> None:
     """Persist a federation run's whole restart state.
 
     ``params``: a dict tree of arrays or tensors, in the layout the
@@ -340,8 +348,26 @@ def save_fed_checkpoint(path: str, params, state: dict, *,
     manifest, each atomically: a kill at any byte leaves the previous
     checkpoint loadable.  Chunk files beyond the committed count (left by
     an earlier save of more clients) are removed after the commit."""
+    tel = resolve_telemetry(telemetry)
+    with tel.span("ckpt.save", path=path):
+        npz_path, saved_bytes = _save_fed(
+            path, params, state, history=history, config=config,
+            extra=extra, injector=injector, client_chunks=client_chunks)
+        tel.counter("ckpt_saves_total", "fed checkpoints written").inc()
+        tel.counter("ckpt_save_bytes_total",
+                    "npz bytes written by fed checkpoint saves").inc(
+            saved_bytes)
+        if injector is not None:
+            injector.fire("ckpt_written", path=npz_path)
+
+
+def _save_fed(path: str, params, state: dict, *, history, config, extra,
+              injector, client_chunks: bool):
+    """save_fed_checkpoint's files: (the npz's path, the bytes of the npz
+    and of every client chunk)."""
     os.makedirs(path, exist_ok=True)
     chunk_recs = None
+    chunk_bytes = 0
     if client_chunks:
         state = dict(state)
         clients = state.pop("clients")
@@ -353,11 +379,12 @@ def save_fed_checkpoint(path: str, params, state: dict, *,
             skel = jsonify_tree(cdict, c_arrays, prefix="c")
             enc, dtypes = _encode_arrays(c_arrays)
             fname = f"client-{idx:08d}.npz"
-            sha = _atomic_savez(os.path.join(chunk_dir, fname), enc,
-                                injector=injector)
+            fpath = os.path.join(chunk_dir, fname)
+            sha = _atomic_savez(fpath, enc, injector=injector)
             chunk_recs.append({"file": f"clients/{fname}",
                                "skeleton": skel, "array_dtypes": dtypes,
                                "sha256": sha})
+            chunk_bytes += os.path.getsize(fpath)
         state["clients"] = []       # stored chunked; see the manifest
     flat = _flatten(params)
     arrays = {f"params/{k}": v for k, v in flat.items()}
@@ -382,8 +409,7 @@ def save_fed_checkpoint(path: str, params, state: dict, *,
                        json.dumps(manifest, indent=2))
     if chunk_recs is not None:
         _prune_stale_chunks(os.path.join(path, "clients"), len(chunk_recs))
-    if injector is not None:
-        injector.fire("ckpt_written", path=npz_path)
+    return npz_path, os.path.getsize(npz_path) + chunk_bytes
 
 
 def _prune_stale_chunks(chunk_dir: str, n_live: int) -> None:
@@ -407,12 +433,29 @@ def _prune_stale_chunks(chunk_dir: str, n_live: int) -> None:
                 pass
 
 
-def load_fed_checkpoint(path: str, verify: bool = True):
+def load_fed_checkpoint(path: str, verify: bool = True, telemetry=None):
     """Returns (params, state_dict, history_dict, config, extra).
 
     Raises CorruptCheckpointError when the manifest is unreadable or
     incomplete, a file fails its recorded checksum, or a payload cannot
     be parsed."""
+    tel = resolve_telemetry(telemetry)
+    with tel.span("ckpt.load", path=path):
+        try:
+            out = _load_fed(path, verify)
+        except CorruptCheckpointError:
+            tel.counter("ckpt_checksum_failures_total",
+                        "fed checkpoint loads rejected as corrupt "
+                        "(bad checksum / unreadable payload)").inc()
+            raise
+        tel.counter("ckpt_loads_total", "fed checkpoints loaded").inc()
+        tel.counter("ckpt_load_bytes_total",
+                    "npz bytes read by fed checkpoint loads").inc(
+            os.path.getsize(os.path.join(path, "fed_checkpoint.npz")))
+    return out
+
+
+def _load_fed(path: str, verify: bool):
     npz_path = os.path.join(path, "fed_checkpoint.npz")
     manifest = _read_manifest(os.path.join(path, "fed_manifest.json"))
     fmt = manifest.get("format")

@@ -27,6 +27,22 @@ Capacity slots: slots beyond the founding clients start empty (n = 1, the
 s-law all mass at 0).  ``admit``/``admit_many``/``commit_burst``,
 ``evict`` and ``set_trace`` write a slot's data rows, its n and its row of
 the s-law table, so a membership event never rebuilds the engine.
+``put_burst(stacks, stream=)`` is the one call a staging thread makes
+(``fed/bank.CohortStager``): on CUDA it queues pinned-memory copies on the
+stager's own stream; ``commit_burst`` marks what it reads as used by the
+current stream, so the caching allocator never hands a staged block back
+to the staging stream while the scatter may still read it.
+
+Telemetry (``telemetry=``, ``repro_torch.obs``; the null default costs
+nothing): the reference's families ``engine_spans_total``,
+``engine_rounds_total`` and ``fed_wire_bytes_total{wire}``, and
+``engine_traces_total``, registered and left at 0 (the port compiles no
+span); the spans ``engine.admit``, ``engine.admit_many``,
+``engine.evict``, ``engine.set_trace`` and ``engine.run_span``.  A span's
+metrics stay on the device, so the caller charges the wire with
+``account_uploads`` once it has read ``s`` back (the scheduler does).
+With ``Telemetry(trace_dir=)`` each span also runs under
+``torch.profiler`` and writes a Chrome trace into that directory.
 
 Sharding: with ``sharding=FedSharding(...)`` (``fed/sharding.py``) the
 capacity is padded to whole slots per rank and this rank's data buffers
@@ -41,7 +57,9 @@ replicated and the metrics are the whole federation's on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -49,11 +67,12 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.aggregation import scheme_coefficients
-from repro_torch.core.compression import resolve_compression
+from repro_torch.core.compression import resolve_compression, wire_bytes
 from repro_torch.core.fed_step import (fed_round_parallel,
                                        fed_round_sequential)
 from repro_torch.device import resolve_device
 from repro_torch.fed.task import ArrayTask
+from repro_torch.obs.telemetry import resolve as resolve_telemetry
 
 Params = Dict[str, torch.Tensor]
 
@@ -179,7 +198,7 @@ class RoundEngine:
                  max_samples: Optional[int] = None, device=None,
                  compression=None, model_kind: Optional[str] = None,
                  sharding=None, mode: str = "client_parallel",
-                 with_metrics: bool = False):
+                 with_metrics: bool = False, telemetry=None):
         if mode not in ("client_parallel", "client_sequential"):
             raise ValueError(f"mode must be client_parallel|"
                              f"client_sequential, got {mode!r}")
@@ -263,6 +282,25 @@ class RoundEngine:
             self.device)
         self._slots = torch.arange(n_local, device=self.device)[:, None,
                                                                 None]
+        self.telemetry = tel = resolve_telemetry(telemetry)
+        # the reference counts its scan compiles here; the port compiles
+        # none, and keeps the family so that the reference's dashboards
+        # find it
+        self._m_traces = tel.counter(
+            "engine_traces_total",
+            "jitted chunk (re)traces — actual scan compiles")
+        self._m_spans = tel.counter(
+            "engine_spans_total", "run_span dispatches")
+        self._m_rounds = tel.counter(
+            "engine_rounds_total", "rounds executed by run_span")
+        # analytic client->server traffic (core/compression.wire_bytes),
+        # by wire format, charged per span from the realized s
+        self._m_wire = tel.counter(
+            "fed_wire_bytes_total",
+            "client->server delta bytes (analytic, by wire format)",
+            labelnames=("wire",))
+        self._d_total: Optional[int] = None
+        self._traces_written = 0
 
     def _client_rows(self, client):
         """The task's per-sample arrays for one client, shape-checked
@@ -290,7 +328,8 @@ class RoundEngine:
     # -- capacity-slot lifecycle ----------------------------------------------
     def admit(self, slot: int, client) -> None:
         """Write one client into a slot: a burst of one."""
-        self.admit_many([(slot, client)])
+        with self.telemetry.span("engine.admit", slot=slot):
+            self._admit_many([(slot, client)])
 
     def admit_many(self, assignments) -> None:
         """Write a burst of (slot, client) pairs into their slots: the
@@ -302,6 +341,10 @@ class RoundEngine:
         assignments = list(assignments)
         if not assignments:
             return
+        with self.telemetry.span("engine.admit_many", k=len(assignments)):
+            self._admit_many(assignments)
+
+    def _admit_many(self, assignments) -> None:
         slots = [slot for slot, _ in assignments]
         for _, c in assignments:
             if c.n > self.nmax:
@@ -325,12 +368,25 @@ class RoundEngine:
             cdfs=[trace_cdf_row(c.trace, self.E) for _, c in assignments],
             idx=idx)
 
-    def put_burst(self, stacks) -> dict:
+    def put_burst(self, stacks, *, stream=None) -> dict:
         """Move pre-stacked (k, Nmax, *spec.shape) host buffers to the
         device, one transfer per buffer.  Pure transfer, no engine
-        mutation."""
-        return {name: torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device) for name, a in stacks.items()}
+        mutation, so a staging thread may call it while a span runs.
+
+        Without ``stream`` the stacks are numpy arrays and the copies run
+        on the calling thread's current stream (synchronous from pageable
+        memory: the admit path).  With ``stream`` (a ``torch.cuda.Stream``,
+        the CohortStager's) the stacks are pinned host tensors, and the
+        copies are queued on that stream with ``non_blocking=True`` and
+        allocated from its pool: the caller waits for them (an event
+        recorded after them on the stream) before it reads the result or
+        rewrites a stack."""
+        if stream is None:
+            return {name: torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device) for name, a in stacks.items()}
+        with torch.cuda.stream(stream):
+            return {name: t.to(self.device, non_blocking=True)
+                    for name, t in stacks.items()}
 
     def commit_burst(self, dev_rows, *, slots, ns, cdfs, idx=None) -> None:
         """Land a staged burst: every data buffer's rows, n and the s-law
@@ -349,6 +405,13 @@ class RoundEngine:
         self._check_burst(slots)
         idx = list(range(len(slots))) if idx is None else list(idx)
         dev = self.device
+        if dev.type == "cuda":
+            # a staged stack was allocated on the stager's stream: mark it
+            # as used by this one, so that once the scheduler drops it the
+            # allocator waits for the gather below before reusing it
+            current = torch.cuda.current_stream(dev)
+            for t in dev_rows.values():
+                t.record_stream(current)
         at = torch.tensor(slots, device=dev)
         self.n[at] = torch.tensor(list(ns), dtype=torch.int32, device=dev)
         self.s_cdf[at] = torch.from_numpy(np.stack(cdfs)).to(dev)
@@ -368,14 +431,16 @@ class RoundEngine:
         device, unreachable (alpha = 0, coefficient 0), until the next
         admit overwrites it."""
         self._check_slot(slot)
-        self.n[slot] = 1
-        self.s_cdf[slot] = self._empty_cdf
+        with self.telemetry.span("engine.evict", slot=slot):
+            self.n[slot] = 1
+            self.s_cdf[slot] = self._empty_cdf
 
     def set_trace(self, slot: int, trace) -> None:
         """Swap the availability law of an occupied slot (TraceShift)."""
         self._check_slot(slot)
-        self.s_cdf[slot] = torch.from_numpy(
-            trace_cdf_row(trace, self.E)).to(self.device)
+        with self.telemetry.span("engine.set_trace", slot=slot):
+            self.s_cdf[slot] = torch.from_numpy(
+                trace_cdf_row(trace, self.E)).to(self.device)
 
     # -- one round ------------------------------------------------------------
     def _round_core(self, params, alpha, idx, tau, p, rb_tau0, rb_boost,
@@ -435,7 +500,7 @@ class RoundEngine:
         (params, metrics) with the metrics still on the device, stacked
         over rounds: s (R, capacity), eta (R,) and delta_norm (R,), so the
         host does not wait for the span; the caller reads them back when
-        it needs them.
+        it needs them, and charges the wire then (``account_uploads``).
         """
         if (plan is None) == (key is None):
             raise ValueError("pass exactly one of plan= or key=")
@@ -444,6 +509,56 @@ class RoundEngine:
             return params, {"s": torch.zeros((0, self.capacity), device=dev),
                             "eta": torch.zeros(0, device=dev),
                             "delta_norm": torch.zeros(0, device=dev)}
+        if self._d_total is None:
+            # the model's size in floats, for account_uploads
+            self._d_total = sum(int(v.numel()) for v in params.values())
+        tel = self.telemetry
+        self._m_spans.inc()
+        self._m_rounds.inc(n_rounds)
+        with tel.span("engine.run_span", tau=tau_start, rounds=n_rounds), \
+                self._profiled(tau_start, n_rounds):
+            return self._run_span(params, tau_start, n_rounds, p=p,
+                                  lr_shift_tau=lr_shift_tau,
+                                  reboot_tau0=reboot_tau0,
+                                  reboot_boost=reboot_boost, plan=plan,
+                                  key=key, active=active)
+
+    @contextlib.contextmanager
+    def _profiled(self, tau_start: int, n_rounds: int):
+        """With ``Telemetry(trace_dir=)``: the span under
+        ``torch.profiler`` (CPU, and CUDA on the card), its Chrome trace
+        written into trace_dir as ``run_span-<tau>-<rounds>-<seq>.json``.
+        Otherwise nothing."""
+        trace_dir = self.telemetry.trace_dir
+        if not trace_dir:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            yield
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"run_span-{tau_start:06d}-{n_rounds}-"
+                       f"{self._traces_written:04d}.json"))
+        self._traces_written += 1
+
+    def account_uploads(self, s) -> None:
+        """Charge fed_wire_bytes_total for a span's completed-epoch matrix
+        (host numpy): one delta upload per client-round with any epochs,
+        in the engine's wire format (``core.compression.wire_bytes``)."""
+        uploads = int((np.asarray(s) > 0).sum())
+        if uploads:
+            self._m_wire.labels(self.compression.name).inc(
+                wire_bytes(self._d_total, self.compression,
+                           n_clients=uploads))
+
+    def _run_span(self, params: Params, tau_start: int, n_rounds: int, *,
+                  p, lr_shift_tau: int, reboot_tau0, reboot_boost, plan,
+                  key, active):
+        dev = self.device
         p = torch.as_tensor(p, dtype=torch.float32, device=dev)
         rb_tau0 = torch.as_tensor(reboot_tau0, dtype=torch.int32, device=dev)
         rb_boost = torch.as_tensor(reboot_boost, dtype=torch.float32,

@@ -195,18 +195,13 @@ def correlated_churn(*, n_clients: int = 10, n_rounds: int = 30,
                           f"{burst_every} for {burst_len}")
 
 
-def rotation(*, fleet: int = 40, hot: int = 12, dwell: int = 2,
-             n_rounds: int = 60, seed: int = 0) -> Scenario:
-    """A fleet far larger than the hot-slot capacity rotates through the
-    engine: every ``dwell`` rounds the oldest resident departs (include
-    policy: its data mass stays in the objective) and the next fleet
-    member arrives, first as a brand-new payload, then as a client_id
-    rejoin once everyone has been seen.  At most ``hot`` clients are
-    resident at any time, so the scenario runs on ``hot`` capacity
-    slots; slot allocation is lowest-free-first, so a run with capacity
-    >= fleet assigns the same slots."""
-    all_clients = _make_clients(fleet, seed)
-    clients = all_clients[:hot]
+def rotation_events(fleet_clients: Sequence[Client], hot: int, dwell: int,
+                    n_rounds: int) -> List[ParticipationEvent]:
+    """The rotation schedule over ``fleet_clients``, of which the first
+    ``hot`` are resident at tau 0: every ``dwell`` rounds the oldest
+    resident departs (include policy) and the next fleet member arrives,
+    a brand-new payload until every client has been seen, then a
+    client_id rejoin of the longest departed."""
     events: List[ParticipationEvent] = []
     resident = deque(range(hot))
     departed_q: deque = deque()
@@ -216,16 +211,31 @@ def rotation(*, fleet: int = 40, hot: int = 12, dwell: int = 2,
         old = resident.popleft()
         events.append(Departure(tau, client_id=old, policy="include"))
         departed_q.append(old)
-        if next_new < fleet:
-            events.append(Arrival(tau, client=all_clients[next_new]))
+        if next_new < len(fleet_clients):
+            events.append(Arrival(tau, client=fleet_clients[next_new]))
             resident.append(next_new)
             next_new += 1
         else:
             back = departed_q.popleft()
             events.append(Arrival(tau, client_id=back))
             resident.append(back)
+    return events
+
+
+def rotation(*, fleet: int = 40, hot: int = 12, dwell: int = 2,
+             n_rounds: int = 60, seed: int = 0) -> Scenario:
+    """A fleet far larger than the hot-slot capacity rotates through the
+    engine (``rotation_events``): every ``dwell`` rounds the oldest
+    resident departs (include policy: its data mass stays in the
+    objective) and the next fleet member arrives, first as a brand-new
+    payload, then as a client_id rejoin once everyone has been seen.  At
+    most ``hot`` clients are resident at any time, so the scenario runs on
+    ``hot`` capacity slots; slot allocation is lowest-free-first, so a run
+    with capacity >= fleet assigns the same slots."""
+    all_clients = _make_clients(fleet, seed)
+    events = rotation_events(all_clients, hot, dwell, n_rounds)
     nmax = max(c.n for c in all_clients)
-    return Scenario("rotation", clients, events, capacity=hot,
+    return Scenario("rotation", all_clients[:hot], events, capacity=hot,
                     n_rounds=n_rounds, seed=seed, max_samples=nmax,
                     notes=f"fleet {fleet} through {hot} hot slots, "
                           f"dwell {dwell}")
@@ -286,9 +296,12 @@ def build_scheduler(sc: Scenario, *, mode: str = "device",
     """StreamScheduler for a scenario on the paper's SYNTHETIC logreg, on
     ``device`` (the CUDA device unless ``"cpu"``), from the reference's
     initial parameters for ``sc.seed`` (``scenario_init``).
-    ``capacity=`` overrides the scenario's slot count; ``bank=``,
-    ``prefetch=``, ``telemetry=`` and ``interpret=`` are refused unless
-    null, as the scheduler refuses them (``stream.refuse_unported``)."""
+    ``capacity=`` overrides the scenario's slot count (fleet-beyond-
+    capacity runs keep the overflow in the bank); ``bank=``/``prefetch=``
+    enable the tiered client store and the cohort prefetch
+    (``fed/bank.py``); ``telemetry=`` instruments scheduler, engine and
+    checkpoints (``repro_torch.obs``); ``interpret=`` is refused unless
+    null, as the scheduler refuses it (``stream.refuse_unported``)."""
     from repro_torch.configs.paper import SYNTHETIC_LR
     from repro_torch.device import resolve_device
     from repro_torch.fed.stream import StreamScheduler

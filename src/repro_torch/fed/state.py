@@ -253,6 +253,36 @@ class FedState:
 
         raise TypeError(f"unknown participation event {e!r}")
 
+    def upcoming_arrivals(self, until_tau: int):
+        """Prefetch planning (read-only), the reference's: the (client_id,
+        Client) pairs whose queued Arrivals with tau <= until_tau will
+        stage data into a slot when applied — fresh payloads (client_id
+        None until registration) and unslotted rejoins.  A currently
+        slotted client is included when a Departure for it is also queued
+        in the window (evict and rejoin inside one boundary still
+        re-admit).  One ``seen`` set holds both ``id(client)`` values and
+        client ids, as the reference's does.  The scheduler hands this set
+        to the CohortStager (fed/bank.py) so the copy overlaps the current
+        span."""
+        departing = {e.client_id for t, _, e in self.queue
+                     if t <= until_tau and isinstance(e, Departure)}
+        out, seen = [], set()
+        for t, _, e in self.queue:
+            if t > until_tau or not isinstance(e, Arrival):
+                continue
+            if e.client is not None:
+                if id(e.client) not in seen:
+                    seen.add(id(e.client))
+                    out.append((None, e.client))
+            else:
+                i = e.client_id
+                if (i is not None and 0 <= i < len(self.clients)
+                        and i not in seen
+                        and (i not in self.slot_of or i in departing)):
+                    seen.add(i)
+                    out.append((i, self.clients[i]))
+        return out
+
     def expire(self, tau: int) -> bool:
         """Retire a burst expiry landing on tau; True when a masked cohort
         resumed (the span's active mask is stale)."""

@@ -1,14 +1,26 @@
 """Streaming participation: an event queue driving spans of rounds.
 
 Counterpart of ``repro/fed/stream.py``'s ``StreamScheduler``, with its
-checkpoint and resume (the tiered bank, prefetch, fault injection and
-telemetry come with the service layer, ROADMAP item 4).  At each span
-start the scheduler pops every queued event with tau <= now,
-applies it to the FedState and executes the slot actions it returns
-against the RoundEngine (consecutive admits land as one ``admit_many``
-burst; evicts and trace writes in order); then it runs rounds until the
-next event tau, burst expiry or eval round, whichever is first.  Events
-are applied at the first span boundary with tau >= event.tau.
+checkpoint and resume, its tiered client bank and cohort prefetch
+(``fed/bank.py``) and its telemetry (``repro_torch.obs``); fault
+injection and the span log come with ``fed/faults.py`` and
+``fed/fuzz.py`` (ROADMAP items 4 and 5).  At each span start the
+scheduler pops every queued event with tau <= now, applies it to the
+FedState and executes the slot actions it returns against the
+RoundEngine (consecutive admits land as one burst; evicts and trace
+writes in order); then it runs rounds until the next event tau, burst
+expiry or eval round, whichever is first.  Events are applied at the
+first span boundary with tau >= event.tau.  An event that raises
+mid-boundary (a full engine, say) still leaves the admits already
+recorded written to the engine, as the reference's does.
+
+``bank=True`` (or a configured ``ClientBank``) keeps the whole fleet's
+padded rows host-side; ``prefetch=True`` (implies a bank) stages the
+queued arrivals' rows onto the device on a worker thread while spans
+run, from pinned memory on a CUDA stream of its own, and the boundary
+commits them from that stack (hits) or admits them synchronously
+(misses).  Either way the same bytes reach the same slots: a banked run
+is bit-identical to a resident one.
 
 mode="device" (the reference's default) draws participation and batches
 on the device from the state's key (``RoundEngine.run_span(key=...)``);
@@ -41,11 +53,14 @@ from repro_torch.checkpoint.io import load_fed_checkpoint, save_fed_checkpoint
 from repro_torch.configs.paper import PAPER_CONFIGS
 from repro_torch.core.arrivals import RebootState
 from repro_torch.core.departures import BoundTerms
+from repro_torch.fed.bank import ClientBank, CohortStager
 from repro_torch.fed.driver import Client, RoundRecord
-from repro_torch.fed.engine import RoundEngine
+from repro_torch.fed.engine import RoundEngine, trace_cdf_row
 from repro_torch.fed.events import ParticipationEvent
 from repro_torch.fed.state import FedState
 from repro_torch.fed.task import ArrayTask
+from repro_torch.obs.fedmetrics import FedObserver
+from repro_torch.obs.telemetry import resolve as resolve_telemetry
 
 # the reference's default scan chunk: the port runs a span's rounds one
 # after another and has no chunks, but the reference's restore reads a
@@ -54,10 +69,7 @@ REFERENCE_CHUNK_SIZE = 16
 
 # the reference's scheduler arguments the port does not have yet, with the
 # ROADMAP item that brings each
-UNPORTED = {"telemetry": "ROADMAP item 4, obs/",
-            "bank": "ROADMAP item 4, fed/bank.py",
-            "prefetch": "ROADMAP item 4, fed/bank.py",
-            "injector": "ROADMAP item 4, fed/faults.py",
+UNPORTED = {"injector": "ROADMAP item 4, fed/faults.py",
             "log_spans": "ROADMAP item 5, fed/fuzz.py"}
 # the reference's jax-only arguments: Pallas interpret mode and buffer
 # donation have no meaning in the port (a CPU tensor takes a kernel's plain
@@ -101,10 +113,19 @@ class StreamScheduler:
     ``eta0``, ``agg``, ``compression``, ``with_metrics``, ``engine_mode``
     and ``sharding``, plus the port's ``device`` (the CUDA device unless
     ``"cpu"``) and ``model_kind``; ``chunk_size`` is accepted and has no
-    effect (the port has no scan chunks).  ``telemetry``, ``bank``,
-    ``prefetch``, ``injector`` and ``log_spans`` (not ported yet) and
-    ``interpret`` and ``donate`` (jax's) are accepted only at their null
-    defaults: anything else raises ValueError (``refuse_unported``).
+    effect (the port has no scan chunks).
+
+    ``telemetry`` (``repro_torch.obs.Telemetry``; None is the null
+    default) counts spans, eval-cache hits, prefetch hits and misses,
+    feeds the FedObserver's paper gauges and times the spans
+    ``sched.apply_events`` and ``sched.run_span``; a scheduler-built
+    engine shares it.  ``bank`` (True, or a configured ``ClientBank``)
+    and ``prefetch`` (implies a bank) are the reference's tiered store and
+    cohort prefetch (``fed/bank.py``); ``close()`` stops the staging
+    thread and ``prefetch_stats()`` reads its counters.  ``injector`` and
+    ``log_spans`` (not ported yet) and ``interpret`` and ``donate``
+    (jax's) are accepted only at their null defaults: anything else raises
+    ValueError (``refuse_unported``).
     """
 
     def __init__(self, *, clients: Sequence[Client] = (), init_params,
@@ -136,10 +157,21 @@ class StreamScheduler:
                  device=None, model_kind: Optional[str] = None):
         if mode not in ("device", "plan"):
             raise ValueError(f"mode must be device|plan, got {mode!r}")
-        refuse_unported(telemetry=telemetry, bank=bank, prefetch=prefetch,
-                        injector=injector, log_spans=log_spans,
+        refuse_unported(injector=injector, log_spans=log_spans,
                         interpret=interpret, donate=donate)
         self.mode = mode
+        # telemetry: a reused engine keeps its own, a built one shares the
+        # scheduler's
+        self.telemetry = resolve_telemetry(telemetry)
+        self.observer = FedObserver(self.telemetry)
+        self._m_applied = self.telemetry.counter(
+            "sched_spans_total", "event-free spans executed")
+        self._m_cache_hit = self.telemetry.counter(
+            "sched_eval_cache_hits_total",
+            "eval-array cache hits (objective unchanged)")
+        self._m_cache_miss = self.telemetry.counter(
+            "sched_eval_cache_miss_total",
+            "eval-array cache rebuilds (objective membership changed)")
         clients = list(clients) if state is None else state.clients
         if engine is None:
             # chunk_size has no effect: the port runs a span's rounds one
@@ -150,7 +182,7 @@ class StreamScheduler:
                 scheme=scheme, eta0=eta0, agg=agg, compression=compression,
                 with_metrics=with_metrics, capacity=capacity,
                 max_samples=max_samples, sharding=sharding, mode=engine_mode,
-                device=device, model_kind=model_kind)
+                device=device, model_kind=model_kind, telemetry=telemetry)
         self.engine = engine
         self.E = engine.E
         self.B = engine.B
@@ -170,6 +202,31 @@ class StreamScheduler:
         self.history: List[RoundRecord] = (history if history is not None
                                            else [])
         self.delta_norms: List[float] = []
+        # the tiered client store: bank=True builds one from the engine's
+        # geometry, or pass a configured ClientBank (spill_dir, RAM
+        # budget); prefetch=True also stages arrival cohorts on a worker
+        # thread while spans run (and implies a bank)
+        if prefetch and bank is None:
+            bank = True
+        if bank:
+            self.bank = (bank if isinstance(bank, ClientBank)
+                         else ClientBank(engine.task, engine.nmax))
+            for i, c in enumerate(self.state.clients):
+                self.bank.put(i, c)
+        else:
+            self.bank = None
+        self._stager = (CohortStager(engine, self.bank)
+                        if prefetch else None)
+        self._prefetch_sig = None
+        self._staged = None          # the retained cohort (spans boundaries)
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+        self._m_prefetch_hits = self.telemetry.counter(
+            "sched_prefetch_hits_total",
+            "admits served from a prefetched cohort")
+        self._m_prefetch_miss = self.telemetry.counter(
+            "sched_prefetch_misses_total",
+            "admits that fell back to the synchronous staging path")
         self._span_args = None
         self._dirty = True
         self.push(*events)
@@ -236,40 +293,118 @@ class StreamScheduler:
 
     def push(self, *events: ParticipationEvent) -> None:
         """Enqueue participation events (any order, any time, including
-        between run() calls)."""
+        between run() calls).  With prefetch on, staging starts here, at
+        ingestion: the boundary is the deadline, so the staging thread
+        gets the whole span of lead time."""
         self.state.push(*events)
+        if self._stager is not None:
+            self._maybe_prefetch()
 
     # -- event application (executes FedState transitions on the engine) -----
     def _apply_events(self, tau: int) -> str:
         st = self.state
+        if not st.due(tau):
+            # nothing queued for this boundary (most boundaries): a burst
+            # expiring here resumes its cohort, so the active mask is stale
+            if st.expire(tau):
+                self._dirty = True
+            return ""
+        with self.telemetry.span("sched.apply_events", tau=tau):
+            return self._apply_due_events(tau)
+
+    def _apply_due_events(self, tau: int) -> str:
+        st = self.state
         ev = ""
-        admits = []     # consecutive admits land as one burst
-        while st.due(tau):
-            s, actions = st.apply(st.pop_event(), tau)
-            for act in actions:
-                if act[0] == "admit":
-                    admits.append((act[1], st.clients[act[2]]))
-                    continue
-                self.engine.admit_many(admits)
-                admits.clear()
-                if act[0] == "evict":
-                    self.engine.evict(act[1])
-                else:                           # ("set_trace", slot, trace)
-                    self.engine.set_trace(act[1], act[2])
-            ev += s
-            st.events_applied += 1
-        self.engine.admit_many(admits)
-        # a burst expiring here resumes its cohort: the active mask is
-        # stale
+        # consecutive admits land as one burst: slot writes are deferred
+        # while admit actions accumulate, and flushed before any action
+        # that may read or free a slot
+        admits: List[tuple] = []
+
+        def flush():
+            if admits:
+                try:
+                    self._flush_admits(admits)
+                finally:
+                    admits.clear()
+
+        try:
+            while st.due(tau):
+                e = st.pop_event()
+                s, actions = st.apply(e, tau)
+                self.observer.observe_event(e, tau)
+                for act in actions:
+                    if act[0] == "admit":
+                        admits.append((act[1], act[2]))
+                    elif act[0] == "evict":
+                        flush()
+                        self.engine.evict(act[1])
+                    else:                       # ("set_trace", slot, trace)
+                        flush()
+                        self.engine.set_trace(act[1], act[2])
+                ev += s
+                st.events_applied += 1
+        finally:
+            # a raising event must not strand the admits already recorded:
+            # FedState holds their slots, so the engine writes must land
+            # even on the error path
+            flush()
         if st.expire(tau) or ev:
             self._dirty = True
         return ev
+
+    def _flush_admits(self, admits: List[tuple]) -> None:
+        """Land a coalesced admit burst of (slot, client_id) pairs.  The
+        clients a prefetched cohort covers commit from its device stack
+        (one gather and scatter, ``commit_burst``); the rest take the
+        synchronous ``admit_many``.  n and the s-law row always come from
+        the live Client, so a staged row never publishes a stale law."""
+        st = self.state
+        pairs = [(slot, i, st.clients[i]) for slot, i in admits]
+        staged = self._staged
+        if self._stager is not None:
+            fresh = self._stager.collect()
+            if fresh is not None:
+                # retained: later boundaries commit their subset of the
+                # same stack without restaging (its rows do not change)
+                staged = self._staged = fresh
+        if self.bank is not None:
+            # fresh arrivals enter the bank here (their client id exists
+            # from now on); a staged client's host rows ride along, so the
+            # span loop's thread never re-pads them
+            for _, i, c in pairs:
+                j = staged.index.get(id(c)) if staged is not None else None
+                self.bank.put(i, c, rows=staged.rows[j] if j is not None
+                              else None)
+        hits, misses = [], []
+        for slot, _, c in pairs:
+            j = staged.index.get(id(c)) if staged is not None else None
+            if j is not None:
+                hits.append((slot, c, j))
+            else:
+                misses.append((slot, c))
+        if hits:
+            self.engine.commit_burst(
+                staged.dev, slots=[slot for slot, _, _ in hits],
+                ns=[c.n for _, c, _ in hits],
+                cdfs=[trace_cdf_row(c.trace, self.engine.E)
+                      for _, c, _ in hits],
+                idx=[j for _, _, j in hits])
+            self.prefetch_hits += len(hits)
+            self._m_prefetch_hits.inc(len(hits))
+        if misses:
+            if self._stager is not None:
+                self.prefetch_misses += len(misses)
+                self._m_prefetch_miss.inc(len(misses))
+            self.engine.admit_many(misses)
 
     def _eval_arrays(self):
         """The objective's held-out arrays on the engine's device, rebuilt
         only when objective membership changed."""
         version = self.state.objective_version
-        if self._eval_cache is None or self._eval_cache[0] != version:
+        if self._eval_cache is not None and self._eval_cache[0] == version:
+            self._m_cache_hit.inc()
+        else:
+            self._m_cache_miss.inc()
             held = [self.clients[i] for i in sorted(self.objective)
                     if self.clients[i].x_test is not None]
             x = y = None
@@ -321,19 +456,29 @@ class StreamScheduler:
             while tau < stop:
                 ev = self._apply_events(tau)
                 end = st.span_end(tau, stop, ev, eval_every)
+                if self._stager is not None:
+                    # the double buffer: while this span computes, the
+                    # staging thread moves the next boundaries' arrival
+                    # cohort from the bank to the device
+                    self._maybe_prefetch()
                 args = self._args(tau)
-                if self.mode == "device":
-                    # the base key is never split: round tau folds tau in,
-                    # so the draws do not depend on the span structure
-                    self.params, m = eng.run_span(
-                        self.params, tau, end - tau, key=st.key, **args)
-                else:
-                    plans = [st.sample_plan(t, self.E, self.B)
-                             for t in range(tau, end)]
-                    self.params, m = eng.run_span(
-                        self.params, tau, end - tau,
-                        plan=(np.stack([pl[0] for pl in plans]),
-                              np.stack([pl[1] for pl in plans])), **args)
+                with self.telemetry.span("sched.run_span", tau=tau,
+                                         rounds=end - tau):
+                    if self.mode == "device":
+                        # the base key is never split: round tau folds tau
+                        # in, so the draws do not depend on the span
+                        # structure
+                        self.params, m = eng.run_span(
+                            self.params, tau, end - tau, key=st.key, **args)
+                    else:
+                        plans = [st.sample_plan(t, self.E, self.B)
+                                 for t in range(tau, end)]
+                        self.params, m = eng.run_span(
+                            self.params, tau, end - tau,
+                            plan=(np.stack([pl[0] for pl in plans]),
+                                  np.stack([pl[1] for pl in plans])),
+                            **args)
+                self._m_applied.inc()
                 eval_last = (end - 1) % eval_every == 0 or (
                     ev and end - tau == 1)
                 pending.append((tau, end, ev, m,
@@ -346,34 +491,85 @@ class StreamScheduler:
         return self.history
 
     def _flush_spans(self, pending) -> None:
-        """Device metrics -> host RoundRecords, in span order, with one
-        read-back for all spans."""
+        """Device metrics -> host RoundRecords, observer signals and wire
+        accounting, in span order, with one read-back for all spans."""
         if not pending:
             return
+        eng = self.engine
         metrics = [m for _, _, _, m, _ in pending]
         s_all = torch.cat([m["s"] for m in metrics]).cpu().numpy()
-        eta_all = torch.cat([m["eta"] for m in metrics]).cpu()
-        if self.engine.with_metrics:
+        eta_all = torch.cat([m["eta"] for m in metrics]).cpu().numpy()
+        if eng.with_metrics:
             self.delta_norms.extend(
                 torch.cat([m["delta_norm"] for m in metrics]).tolist())
         row = 0
         for tau, end, ev, _, ev_result in pending:
-            for t in range(tau, end):
+            m = {"s": s_all[row:row + end - tau],
+                 "eta": eta_all[row:row + end - tau]}
+            eng.account_uploads(m["s"])
+            self.observer.observe_span(self.state, tau, m, eng.scheme,
+                                       self.E)
+            for j, t in enumerate(range(tau, end)):
                 loss = acc = float("nan")
                 if ev_result is not None and t == end - 1:
                     loss, acc = ev_result
-                s = s_all[row]
+                s = m["s"][j]
                 self.history.append(RoundRecord(
-                    t, float(loss), float(acc), float(eta_all[row]),
+                    t, float(loss), float(acc), float(m["eta"][j]),
                     int((s > 0).sum()), s, ev if t == tau else ""))
-                row += 1
+            row += end - tau
+
+    def _maybe_prefetch(self) -> None:
+        """Submit the queued-arrival horizon as one staged cohort (not one
+        per boundary): every Arrival now in the queue is padded, stacked
+        and moved together, and successive boundaries commit their own
+        subset of the retained stack.  Safe because the stack carries data
+        rows only (n and the s-law are read from the live Client at
+        commit).  Idempotent: skips when the retained cohort already
+        covers the horizon; a new arrival set supersedes the in-flight
+        staging."""
+        st = self.state
+        if not st.queue:
+            self._staged = None                 # horizon drained
+            return
+        until = max(t for t, _, _ in st.queue)
+        items = st.upcoming_arrivals(until)
+        if not items:
+            return
+        staged = self._staged
+        if staged is not None and all(id(c) in staged.index
+                                      for _, c in items):
+            return
+        sig = tuple(sorted(id(c) for _, c in items))
+        if sig == self._prefetch_sig:
+            return
+        self._prefetch_sig = sig
+        self._stager.submit(items)
+
+    def close(self) -> None:
+        """Stop the prefetch staging thread (if any).  Idempotent; the
+        scheduler stays usable: the next prefetch restages."""
+        self._staged = None
+        if self._stager is not None:
+            self._stager.close()
+
+    def prefetch_stats(self) -> dict:
+        """Bank and stager counters (empty when the tiered store is
+        off)."""
+        out = {}
+        if self.bank is not None:
+            out["bank"] = self.bank.stats()
+        if self._stager is not None:
+            out["stager"] = self._stager.stats()
+            out["hits"] = self.prefetch_hits
+            out["misses"] = self.prefetch_misses
+        return out
 
     # -- checkpoint / resume ---------------------------------------------------
     def engine_config(self) -> dict:
         """The engine's geometry, under every key the reference's
         ``restore`` reads (``chunk_size`` is the reference's default: the
-        port has no scan chunks; ``bank`` and ``prefetch`` are off: the
-        port has neither yet), plus ``model_kind``, which fixes the
+        port has no scan chunks), plus ``model_kind``, which fixes the
         params' layout."""
         eng = self.engine
         return {"local_epochs": eng.E, "batch_size": eng.B,
@@ -383,22 +579,25 @@ class StreamScheduler:
                 "with_metrics": eng.with_metrics,
                 "engine_mode": eng.mode, "capacity": eng.capacity,
                 "max_samples": eng.nmax, "mode": self.mode,
-                "bank": False, "prefetch": False,
+                "bank": self.bank is not None,
+                "prefetch": self._stager is not None,
                 "model_kind": eng.model_kind}
 
     def save(self, path: str, extra: Optional[dict] = None,
-             client_chunks: bool = False) -> None:
+             client_chunks: Optional[bool] = None) -> None:
         """Persist params, FedState, history and engine geometry in the
-        reference's format (``checkpoint.io.save_fed_checkpoint``;
-        ``client_chunks=True`` writes fed-checkpoint-v2), the params in
-        the reference's layout for the engine's ``model_kind``.  Under
-        sharding every rank holds the same params and state: save from
-        one rank."""
+        reference's format (``checkpoint.io.save_fed_checkpoint``), the
+        params in the reference's layout for the engine's ``model_kind``.
+        ``client_chunks`` (default: a bank-backed scheduler's) writes
+        fed-checkpoint-v2, one checksummed npz per client.  Under sharding
+        every rank holds the same params and state: save from one rank."""
+        if client_chunks is None:
+            client_chunks = self.bank is not None
         save_fed_checkpoint(
             path, reference_params(self.params, self.engine.model_kind),
             self.state.to_dict(), history=history_to_dict(self.history),
             config=self.engine_config(), extra=extra,
-            client_chunks=client_chunks)
+            telemetry=self.telemetry, client_chunks=client_chunks)
 
     @classmethod
     def restore(cls, path: str, *, loss_fn: Optional[Callable] = None,
@@ -406,7 +605,7 @@ class StreamScheduler:
                 eval_fn: Optional[Callable] = None,
                 evaluate: Optional[Callable] = None,
                 engine: Optional[RoundEngine] = None, sharding=None,
-                **overrides) -> "StreamScheduler":
+                telemetry=None, **overrides) -> "StreamScheduler":
         """Rebuild a scheduler from a checkpoint that either package's
         ``save()`` wrote.  The engine is rebuilt on ``device`` (the CUDA
         device unless ``device="cpu"``) from the persisted geometry, or
@@ -417,21 +616,17 @@ class StreamScheduler:
         Only the callables (``loss_fn`` or ``task``, ``eval_fn`` or
         ``evaluate``) are the caller's to supply.  ``model_kind`` (the
         checkpoint's own, else None) fixes the layout the params are read
-        in; ``overrides`` replace entries of the persisted geometry.
+        in; ``overrides`` replace entries of the persisted geometry.  The
+        bank and the stager are rebuilt from the restored clients when the
+        config says ``bank`` or ``prefetch`` (their contents are derived
+        state, never persisted raw).
 
         Raises ``checkpoint.CorruptCheckpointError`` when the checkpoint
-        fails its checksum, and ValueError for a checkpoint saved with
-        the tiered bank or prefetch on."""
+        fails its checksum."""
         params, state_dict, history, config, _extra = \
-            load_fed_checkpoint(path)
+            load_fed_checkpoint(path, telemetry=telemetry)
         cfg = dict(config)
         cfg.update(overrides)
-        for flag in ("bank", "prefetch"):
-            if cfg.get(flag):
-                raise ValueError(
-                    f"checkpoint {path!r} was saved with {flag}=True: the "
-                    f"tiered client bank and its prefetch are not ported "
-                    f"yet (ROADMAP item 4)")
         state = FedState.from_dict(state_dict)
         if model_kind is None:
             model_kind = cfg.get("model_kind")
@@ -447,7 +642,7 @@ class StreamScheduler:
                 with_metrics=cfg["with_metrics"], compression=compression,
                 capacity=cfg["capacity"], max_samples=cfg["max_samples"],
                 device=device, model_kind=model_kind, sharding=sharding,
-                mode=cfg["engine_mode"])
+                mode=cfg["engine_mode"], telemetry=telemetry)
         else:
             if engine.capacity != cfg["capacity"]:
                 raise ValueError(
@@ -476,7 +671,9 @@ class StreamScheduler:
                                            engine.device),
                    engine=engine, state=state, mode=cfg["mode"],
                    eval_fn=eval_fn, evaluate=evaluate,
-                   history=history_from_dict(history))
+                   history=history_from_dict(history), telemetry=telemetry,
+                   bank=cfg.get("bank", False),
+                   prefetch=cfg.get("prefetch", False))
 
 
 # -- params on disk: the reference's layout ------------------------------------

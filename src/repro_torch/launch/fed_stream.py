@@ -12,8 +12,14 @@ on the paper's SYNTHETIC logreg workload, on the CUDA device unless
 NaN and are filtered, see ``fed.scenarios.summarize_history``) plus
 wall-clock rounds/sec.  ``--save-state`` and ``--restore`` write and read
 the reference's checkpoint files, so either package resumes the other's.
-``--bank``, ``--prefetch``, ``--metrics-out`` and ``--prom-out`` are the
-reference's flags for the service layer (ROADMAP item 4) and are refused.
+``--bank`` keeps the fleet's payloads in a host-RAM client bank and
+``--prefetch`` (implies it) stages each boundary's arrival cohort onto the
+device while the span before it runs (``fed/bank.py``; on the card from
+pinned memory on a CUDA stream of its own); the summary's ``"bank"``
+entry holds the bank's and the stager's counters.  ``--metrics-out``
+(telemetry JSONL: spans, then a metrics snapshot) and ``--prom-out`` (the
+Prometheus text exposition) turn telemetry on (``repro_torch.obs``);
+span times are the host's, the card's work being asynchronous.
 """
 from __future__ import annotations
 
@@ -23,8 +29,6 @@ import sys
 import time
 
 import torch
-
-UNPORTED_FLAGS = ("bank", "prefetch", "metrics_out", "prom_out")
 
 
 def main(argv=None) -> dict:
@@ -52,9 +56,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="'cpu' runs on the CPU; default: the CUDA device")
     ap.add_argument("--bank", action="store_true",
-                    help="not ported yet (ROADMAP item 4): refused")
+                    help="keep the full fleet's payloads in a host-RAM "
+                         "client bank (fed/bank.py); capacity slots "
+                         "become a managed hot cache")
     ap.add_argument("--prefetch", action="store_true",
-                    help="not ported yet (ROADMAP item 4): refused")
+                    help="double-buffered cohort prefetch: stage the "
+                         "next boundary's arrival cohort onto the "
+                         "device while the current span runs "
+                         "(implies --bank)")
     ap.add_argument("--json", default=None,
                     help="also write the summary to this path")
     ap.add_argument("--save-state", default=None, metavar="DIR",
@@ -64,16 +73,19 @@ def main(argv=None) -> dict:
                     help="resume a --save-state checkpoint (of either "
                          "package) and run --rounds more rounds")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
-                    help="not ported yet (ROADMAP item 4): refused")
+                    help="write the telemetry JSONL dump (spans + "
+                         "metrics) here when the run ends (enables "
+                         "telemetry)")
     ap.add_argument("--prom-out", default=None, metavar="PATH",
-                    help="not ported yet (ROADMAP item 4): refused")
+                    help="write the Prometheus text exposition here "
+                         "when the run ends (enables telemetry)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
-    for flag in UNPORTED_FLAGS:
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')}: the client bank, its "
-                     f"prefetch and telemetry are not ported yet (ROADMAP "
-                     f"item 4)")
+
+    telemetry = None
+    if args.metrics_out or args.prom_out:
+        from repro_torch.obs import Telemetry
+        telemetry = Telemetry()
 
     device = resolve_device(args.device)
     sc = make_scenario(args.scenario, seed=args.seed)
@@ -89,11 +101,16 @@ def main(argv=None) -> dict:
         overrides = {} if args.mode is None else {"mode": args.mode}
         if args.compress is not None:
             overrides["compression"] = args.compress
+        if args.bank:
+            overrides["bank"] = True
+        if args.prefetch:
+            overrides["prefetch"] = True
         sch = StreamScheduler.restore(args.restore,
                                       loss_fn=make_loss_fn(SYNTHETIC_LR),
                                       eval_fn=_paper_eval_fn(),
                                       model_kind=SYNTHETIC_LR.kind,
-                                      device=device, **overrides)
+                                      device=device, telemetry=telemetry,
+                                      **overrides)
         resumed_from = sch._next_tau
         sch.run(args.rounds if args.rounds is not None else sc.n_rounds,
                 eval_every=(args.eval_every if args.eval_every is not None
@@ -110,16 +127,31 @@ def main(argv=None) -> dict:
                                     eval_every=args.eval_every,
                                     chunk_size=args.chunk_size,
                                     compression=args.compress,
-                                    device=device)
+                                    bank=args.bank or None,
+                                    prefetch=args.prefetch,
+                                    telemetry=telemetry, device=device)
         rounds_ran = summary["rounds"]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
+    # the run is over: no staging thread outlives it
+    sch.close()
+    if telemetry is not None:
+        if args.metrics_out:
+            telemetry.dump_jsonl(args.metrics_out)
+            if not args.quiet:
+                print(f"# telemetry JSONL written to {args.metrics_out}")
+        if args.prom_out:
+            telemetry.write_prom(args.prom_out)
+            if not args.quiet:
+                print(f"# prom exposition written to {args.prom_out}")
     if args.save_state:
         sch.save(args.save_state)
         if not args.quiet:
             print(f"# resumable checkpoint written to {args.save_state}")
     summary["compression"] = sch.engine.compression.name
+    if sch.bank is not None:
+        summary["bank"] = sch.prefetch_stats()
     summary["wall_s"] = round(wall, 3)
     # rounds run in this invocation (a resumed history also holds the
     # rounds before the checkpoint, which this wall clock never paid for)
@@ -131,6 +163,11 @@ def main(argv=None) -> dict:
         print(f"# device {where}")
         print(f"# scenario {sc.name} ({sc.notes}), seed {sc.seed}, "
               f"mode {sch.mode}, wire {sch.engine.compression.name}")
+        if sch.bank is not None:
+            ps = sch.prefetch_stats()
+            print(f"# bank: {ps['bank']['resident']} resident, "
+                  f"prefetch hits {ps.get('hits', 0)} "
+                  f"misses {ps.get('misses', 0)}")
         print("tau,loss,acc,eta,n_active,event")
         for h in sch.history:
             if h.event or not (h.loss != h.loss):   # event or evaluated

@@ -23,9 +23,10 @@ codec, ``FedState.to_dict``/``from_dict``, ``StreamScheduler.save``/
   6 clients, every event kind, two events pending at the cut): device and
   plan mode, the f32 and int8 wires, ``client_sequential``, the CNN in its
   reference layout on disk, and cut into run() calls of other lengths.
-- ``restore`` runs on the card unless the CPU is asked for, refuses a
-  checkpoint saved with the tiered bank or prefetch, reuses an engine, and
-  refuses to write or read a CNN's params with no model kind.
+- ``restore`` runs on the card unless the CPU is asked for, rebuilds the
+  tiered bank and its prefetch from a checkpoint saved with them (v2 by
+  default), reuses an engine, and refuses to write or read a CNN's params
+  with no model kind.
 - A checkpoint of the unsharded port restored with ``sharding=`` on 4 gloo
   ranks gives the unsharded run's records.
 
@@ -132,7 +133,8 @@ def init_params(cfg):
 
 
 def port_scheduler(mode, model="logreg", compression=None,
-                   round_mode="client_parallel", sharding=None, eta0=None):
+                   round_mode="client_parallel", sharding=None, eta0=None,
+                   **kw):
     cfg, clients, newcomer, capacity, nmax, B, scenario_eta0 = \
         SCENARIOS[model]
     eta0 = scenario_eta0 if eta0 is None else eta0
@@ -145,10 +147,10 @@ def port_scheduler(mode, model="logreg", compression=None,
     return StreamScheduler(
         clients=clients, init_params=init_params(cfg), engine=engine,
         mode=mode, eval_fn=port_eval(cfg), seed=0,
-        events=events(port_fed, TRACES, port_client(newcomer())))
+        events=events(port_fed, TRACES, port_client(newcomer())), **kw)
 
 
-def ref_scheduler(mode):
+def ref_scheduler(mode, **kw):
     """The reference's tests/test_checkpoint_resume.py scheduler, on the
     same arrays."""
     import jax
@@ -168,7 +170,7 @@ def ref_scheduler(mode):
         loss_fn=rloss(RCFG), capacity=capacity, max_samples=nmax,
         local_epochs=5, batch_size=B, scheme="C", eta0=eta0, seed=0,
         mode=mode, chunk_size=4,
-        events=events(ref_fed, RTRACES, client(newcomer())))
+        events=events(ref_fed, RTRACES, client(newcomer())), **kw)
 
 
 def assert_records_identical(h1, h2):
@@ -854,19 +856,39 @@ def test_restore_runs_on_the_card_unless_asked_for_the_cpu(tmp_path,
 
 
 @pytest.mark.parametrize("flag", ["bank", "prefetch"])
-def test_restore_refuses_a_bank_or_prefetch_checkpoint(tmp_path, flag):
-    sch = port_scheduler("plan")
+def test_restore_rebuilds_the_bank_and_prefetch(tmp_path, flag):
+    """A scheduler saved with the tiered bank (or prefetch, which implies
+    it) writes fed-checkpoint-v2 by default, one chunk per client, records
+    the flag in its config, and restores with the bank (and the stager)
+    rebuilt from the restored clients; the resumed run is the uncut one
+    bit for bit."""
+    baseline = port_scheduler("plan")
+    baseline.run(ROUNDS, eval_every=EVAL_EVERY)
+    sch = port_scheduler("plan", **{flag: True})
+    sch.run(CUT, eval_every=EVAL_EVERY)
     sch.save(str(tmp_path / "c"))
+    sch.close()
+    n_clients = len(sch.clients)
     params, state, history, config, _ = load_fed_checkpoint(
         str(tmp_path / "c"))
-    assert config["bank"] is False and config["prefetch"] is False
-    config[flag] = True
-    save_fed_checkpoint(str(tmp_path / "b"), params, state, history=history,
-                        config=config)
-    with pytest.raises(ValueError, match="ROADMAP item 4"):
-        StreamScheduler.restore(str(tmp_path / "b"),
-                                loss_fn=make_loss_fn(SYNTHETIC_LR),
-                                device="cpu")
+    assert config["bank"] is True
+    assert config["prefetch"] is (flag == "prefetch")
+    assert len(list((tmp_path / "c" / "clients").glob("client-*.npz"))) \
+        == n_clients
+    res = StreamScheduler.restore(str(tmp_path / "c"),
+                                  loss_fn=make_loss_fn(SYNTHETIC_LR),
+                                  eval_fn=port_eval(SYNTHETIC_LR),
+                                  device="cpu")
+    assert res.bank is not None and len(res.bank) == n_clients
+    assert (res._stager is not None) is (flag == "prefetch")
+    assert res.engine_config()["bank"] is True
+    res.run(ROUNDS - CUT, eval_every=EVAL_EVERY)
+    res.close()
+    assert_records_identical(baseline.history, res.history)
+    assert_params_equal(baseline.params, res.params)
+    if flag == "prefetch":       # the pending newcomer came from the stack
+        assert res.prefetch_stats()["hits"] == 1
+        assert res.prefetch_stats()["misses"] == 0
 
 
 def test_restore_of_a_flipped_byte_raises_corrupt(tmp_path):

@@ -23,6 +23,11 @@ eta0 0.5, as tests/test_torch_trainer.py's: at the reference test's eta0
 reference with only its summation order changed (features permuted)
 10.7-15.5 from itself (tools/resume_drift.py; ROADMAP Limits item 6), so
 no resume, of either package, could be held to PARAM_TOL there.
+
+A bank-backed checkpoint crosses too: a prefetching scheduler of either
+package writes fed-checkpoint-v2 (one chunk per client) with ``bank`` and
+``prefetch`` in its config, and the other package restores it with both
+rebuilt; the resumed records equal the saver's uncut run's.
 """
 import numpy as np
 import pytest
@@ -34,7 +39,8 @@ from repro_torch.fed import StreamScheduler
 from repro_torch.models.small import make_loss_fn
 from repro_torch.params import from_jax, to_numpy
 from test_torch_checkpoint import (CUT, EVAL_EVERY, ROUNDS, SCENARIOS,
-                                   events, port_client)
+                                   events, port_client, port_scheduler,
+                                   ref_scheduler)
 from test_torch_trainer import PARAM_TOL, port_eval, ref_eval
 
 LOSS_RTOL = 1e-5
@@ -192,3 +198,46 @@ def test_the_uncut_runs_draw_the_same_rounds(runs):
             (b.tau, b.eta, b.n_active, b.event)
         np.testing.assert_array_equal(np.asarray(a.s), np.asarray(b.s))
         assert np.isnan(a.loss) == np.isnan(b.loss)
+
+
+@pytest.mark.parametrize("saver", ["reference", "port"])
+def test_bank_checkpoints_cross_the_packages(tmp_path, saver):
+    """The reference's resume scenario (logreg, plan mode) with prefetch on,
+    cut at tau 6 and saved by one package (v2 by default), restored by the
+    other with its bank and stager rebuilt, run to tau 12: the records of
+    the saver's uncut run, the pending newcomer a prefetch hit."""
+    import json
+    from repro.fed import StreamScheduler as RefScheduler
+    from repro.configs.paper import SYNTHETIC_LR as RCFG
+    from repro.models.small import make_loss_fn as rloss
+
+    build = ref_scheduler if saver == "reference" else port_scheduler
+    uncut = build("plan")
+    uncut.run(ROUNDS, eval_every=EVAL_EVERY)
+    cut = build("plan", prefetch=True)
+    cut.run(CUT, eval_every=EVAL_EVERY)
+    cut.save(str(tmp_path / "c"))
+    cut.close()
+    manifest = json.loads((tmp_path / "c" / "fed_manifest.json").read_text())
+    assert manifest["format"] == "fed-checkpoint-v2"
+    assert manifest["config"]["bank"] is True
+    assert manifest["config"]["prefetch"] is True
+    assert len(manifest["client_chunks"]) == len(cut.clients)
+    if saver == "reference":      # its scheduler evaluates nothing
+        res = StreamScheduler.restore(
+            str(tmp_path / "c"), loss_fn=make_loss_fn(PORT_LR),
+            device="cpu")
+    else:
+        res = RefScheduler.restore(str(tmp_path / "c"), loss_fn=rloss(RCFG),
+                                   eval_fn=ref_eval(RCFG))
+    assert res.bank is not None and res._stager is not None
+    assert len(res.bank) == len(cut.clients)
+    res.run(ROUNDS - CUT, eval_every=EVAL_EVERY)
+    res.close()
+    for a, b in zip(res.history, uncut.history, strict=True):
+        assert (a.tau, a.eta, a.n_active, a.event) == \
+            (b.tau, b.eta, b.n_active, b.event)
+        np.testing.assert_array_equal(np.asarray(a.s), np.asarray(b.s))
+        assert np.isnan(a.loss) == np.isnan(b.loss)
+    stats = res.prefetch_stats()
+    assert (stats["hits"], stats["misses"]) == (1, 0)

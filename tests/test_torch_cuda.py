@@ -547,3 +547,62 @@ def test_checkpoint_saved_and_restored_on_the_card(card, mode, tmp_path):
         assert np.array_equal(a.s, b.s)
     for k, v in uncut.params.items():
         torch.testing.assert_close(res.params[k], v, rtol=1e-5, atol=1e-6)
+
+
+def test_stager_stages_on_its_own_stream_from_pinned_memory(card):
+    """On the card the CohortStager copies a cohort from pinned host stacks
+    on a stream of its own, and the staging thread waits for the copies:
+    the collected stacks are the padded rows, on the card, allocated from
+    that stream's pool."""
+    import numpy as np
+    from repro_torch.configs.paper import SYNTHETIC_LR as cfg
+    from repro_torch.core.participation import TRACES
+    from repro_torch.data import synthetic_federation
+    from repro_torch.fed import Client, RoundEngine
+    from repro_torch.fed.bank import CohortStager, pad_rows
+    from repro_torch.models.small import make_loss_fn
+
+    train, _ = synthetic_federation(0.5, 0.5, 5, seed=3)
+    clients = [Client(x=tr[0], y=tr[1], trace=TRACES[0]) for tr in train]
+    engine = RoundEngine(loss_fn=make_loss_fn(cfg), clients=clients[:2],
+                         local_epochs=5, batch_size=6, capacity=4,
+                         max_samples=600, model_kind=cfg.kind)
+    stager = CohortStager(engine)
+    assert stager._stream is not None
+    assert stager._stream != torch.cuda.current_stream(card)
+    stager.submit([(None, c) for c in clients[2:]])
+    cohort = stager.collect()
+    stager.close()
+    assert stager.stats()["stage_errors"] == 0 and cohort.k == 3
+    for name, dev in cohort.dev.items():
+        assert dev.is_cuda and dev.shape[0] == 4
+        for j, c in enumerate(clients[2:] + clients[-1:]):
+            want = pad_rows(engine.task, engine.nmax, c)[name]
+            assert np.array_equal(dev[j].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("mode", ["device", "plan"])
+def test_prefetching_scheduler_on_the_card_is_the_resident_one(card, mode):
+    """A flash crowd on the card with prefetch on (the commit reading the
+    staging stream's stacks on the scheduler's stream) against the same
+    run without a bank: every arrival a hit, no staging error, records and
+    params bit-identical."""
+    from repro_torch.fed.scenarios import build_scheduler, make_scenario
+    runs = []
+    for prefetch in (False, True):
+        sch = build_scheduler(make_scenario("flash-crowd", n_rounds=12),
+                              mode=mode, prefetch=prefetch)
+        sch.run(12, eval_every=4)
+        torch.cuda.synchronize()
+        sch.close()
+        runs.append(sch)
+    plain, banked = runs
+    stats = banked.prefetch_stats()
+    assert stats["hits"] == 6 and stats["misses"] == 0
+    assert stats["stager"]["stage_errors"] == 0
+    for a, b in zip(banked.history, plain.history, strict=True):
+        assert (a.tau, a.eta, a.n_active, a.event) == \
+            (b.tau, b.eta, b.n_active, b.event)
+        assert (a.s == b.s).all()
+    for k, v in plain.params.items():
+        assert torch.equal(banked.params[k], v), k

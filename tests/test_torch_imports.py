@@ -29,7 +29,10 @@ for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
              "repro_torch.benchmarks.paper_tables",
              "repro_torch.benchmarks.bound_check",
              "repro_torch.benchmarks.reference",
-             "repro_torch.fed.scenarios", "repro_torch.launch.fed_stream"):
+             "repro_torch.fed.scenarios", "repro_torch.launch.fed_stream",
+             "repro_torch.fed.bank", "repro_torch.obs",
+             "repro_torch.obs.metrics", "repro_torch.obs.tracing",
+             "repro_torch.obs.telemetry", "repro_torch.obs.fedmetrics"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -126,7 +129,15 @@ def test_streaming_entry_points_refuse_to_run_without_cuda(monkeypatch):
         fed_stream.main(["--scenario", "flash-crowd", "--rounds", "1",
                          "--quiet"])
     with pytest.raises(RuntimeError, match="CUDA"):
+        fed_stream.main(["--scenario", "flash-crowd", "--rounds", "1",
+                         "--quiet", "--prefetch"])
+    with pytest.raises(RuntimeError, match="CUDA"):
         build_scheduler(sc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_scheduler(sc, prefetch=True)
     # asked for, the CPU runs
     assert fed_stream.main(["--scenario", "flash-crowd", "--rounds", "1",
                             "--quiet", "--device", "cpu"])["rounds"] == 1
+    sch = build_scheduler(sc, prefetch=True, device="cpu")
+    assert sch._stager._stream is None      # the CPU: no staging stream
+    sch.close()

@@ -25,6 +25,9 @@
   any reordering of their f32 sums.
 - A ``fed_stream --save-state`` of each package, ``--restore``d by the
   other, continues with the records of an uncut run.
+- ``fed_stream``'s ``--bank``, ``--prefetch``, ``--metrics-out`` and
+  ``--prom-out`` each run and write what they name, the records those of
+  the run without them.
 
 Each reference run is computed once per module (module-scoped fixtures).
 """
@@ -43,7 +46,8 @@ LOSS_RTOL = 1e-5
 EVAL_EVERY = 3
 
 # the reference's own tests' knobs (tests/test_stream.py:253,
-# tests/test_bank.py:155,188) beside each generator's defaults
+# tests/test_bank.py:155,188; tests/test_torch_bank.py runs the latter two
+# through the port's bank) beside each generator's defaults
 GENERATOR_CASES = (
     [(name, seed, {}) for name in P.SCENARIOS for seed in (0, 1, 3, 4)]
     + [("churn", 1, dict(n_clients=6, n_rounds=15)),
@@ -193,15 +197,53 @@ def test_fed_stream_cli(tmp_path, capsys):
         "rounds_per_sec"]
 
 
-@pytest.mark.parametrize("flag", ["--bank", "--prefetch",
-                                  "--metrics-out=m.jsonl",
-                                  "--prom-out=m.prom"])
-def test_fed_stream_refuses_the_service_flags(flag, capsys):
+@pytest.mark.parametrize("flag", ["--bank", "--prefetch", "--metrics-out",
+                                  "--prom-out"])
+def test_fed_stream_runs_the_service_flags(flag, tmp_path, capsys):
+    """Each of the reference's service flags runs on the port and writes
+    what it names: --bank and --prefetch a "bank" entry in the summary and
+    a "# bank:" line (prefetch: every arrival a hit), --metrics-out the
+    telemetry JSONL (spans, then one line per metric family), --prom-out
+    the Prometheus exposition; the records are the plain run's."""
     from repro_torch.launch.fed_stream import main as cli_main
-    with pytest.raises(SystemExit):
-        cli_main(["--scenario", "diurnal", "--rounds", "1", "--device",
-                  "cpu", flag])
-    assert "ROADMAP item 4" in capsys.readouterr().err
+    common = ["--scenario", "flash-crowd", "--rounds", "10", "--eval-every",
+              "4", "--device", "cpu"]
+    plain = cli_main(common + ["--quiet"])
+    capsys.readouterr()
+    out = tmp_path / "out"
+    args = [flag] if flag in ("--bank", "--prefetch") else [flag, str(out)]
+    summary = cli_main(common + args)
+    lines = capsys.readouterr().out.splitlines()
+    assert summary["events"] == plain["events"]
+    assert summary["final_loss"] == plain["final_loss"]
+    if flag in ("--bank", "--prefetch"):
+        bank = summary["bank"]["bank"]
+        assert bank["clients"] == summary["clients_end"] == 12
+        assert any(ln.startswith("# bank: 12 resident") for ln in lines)
+        stager = summary["bank"].get("stager")
+        assert (stager is not None) is (flag == "--prefetch")
+        if stager is not None:
+            assert summary["bank"]["hits"] == 6
+            assert summary["bank"]["misses"] == 0
+            assert stager["stage_errors"] == 0
+        assert "bank" not in plain
+    elif flag == "--metrics-out":
+        recs = [json.loads(ln) for ln in out.read_text().splitlines()]
+        spans = {r["name"] for r in recs if r["kind"] == "span"}
+        assert {"sched.run_span", "engine.run_span",
+                "sched.apply_events", "engine.admit_many"} <= spans
+        # a metric line's "kind" is its family's (the reference's dump
+        # spreads the family over the line's own "metric")
+        metrics = {r["name"]: r for r in recs if r["kind"] != "span"}
+        assert metrics["engine_rounds_total"]["kind"] == "counter"
+        assert metrics["engine_rounds_total"]["samples"][0]["value"] == 10
+        assert f"# telemetry JSONL written to {out}" in lines
+    else:
+        text = out.read_text()
+        assert "engine_rounds_total 10" in text.splitlines()
+        assert 'fed_wire_bytes_total{wire="none"}' in text
+        assert "# TYPE span_seconds histogram" in text
+        assert f"# prom exposition written to {out}" in lines
 
 
 # -- the scenarios cut short, teacher-forced ----------------------------------

@@ -3,8 +3,9 @@ the scenario library: ``core/participation.{sample_alpha, assign_traces,
 BernoulliParticipation}``, ``core/arrivals.{shift_weights_arrival,
 reboot_radius}``, ``core/departures.{crossing_round,
 shift_weights_departure}``, ``ClientTask.init_params``/``param_specs``,
-and ``StreamScheduler``'s engine-building constructor, its views and its
-refusals of what is not ported yet."""
+and ``StreamScheduler``'s engine-building constructor, its views, the
+reference's arguments it now takes (``telemetry``, ``bank``,
+``prefetch``) and its refusals of what is not ported yet."""
 import numpy as np
 import pytest
 import torch
@@ -191,10 +192,8 @@ def test_views_read_the_state():
     assert sorted(sch.free_slots) == [10, 11]
 
 
-REFUSED = [("telemetry", object(), "item 4"), ("bank", True, "item 4"),
-           ("prefetch", True, "item 4"), ("injector", object(), "item 4"),
-           ("log_spans", True, "item 5"), ("interpret", True, "jax-only"),
-           ("donate", True, "jax-only")]
+REFUSED = [("injector", object(), "item 4"), ("log_spans", True, "item 5"),
+           ("interpret", True, "jax-only"), ("donate", True, "jax-only")]
 
 
 @pytest.mark.parametrize("name,value,item", REFUSED,
@@ -208,10 +207,50 @@ def test_unported_arguments_are_refused(name, value, item):
     with pytest.raises(ValueError, match=f"{name}=.*{item}"):
         _scheduler(sc, loss_fn=make_loss_fn(SYNTHETIC_LR), device="cpu",
                    **{name: value})
-    if name in ("telemetry", "bank", "prefetch", "interpret"):
+    if name == "interpret":
         with pytest.raises(ValueError, match=f"{name}=.*{item}"):
             build_scheduler(sc, device="cpu", **{name: value})
     # the null defaults pass
     _scheduler(sc, loss_fn=make_loss_fn(SYNTHETIC_LR), device="cpu",
                capacity=sc.capacity, max_samples=sc.max_samples,
                **{name: None if value is not True else False})
+
+
+ACCEPTED = ["telemetry", "bank", "prefetch"]
+
+
+@pytest.mark.parametrize("name", ACCEPTED)
+def test_ported_arguments_are_accepted(name):
+    """The reference's telemetry, bank and prefetch arguments are taken by
+    the scheduler and by build_scheduler, and do what they name: the
+    scheduler and the engine it builds share the telemetry (which counts
+    the spans), a bank holds every client, prefetch adds a stager that
+    serves the arrivals; the records are those of a run without them."""
+    from repro_torch.fed.scenarios import build_scheduler
+    from repro_torch.obs import Telemetry
+    sc = make_scenario("staggered", n_rounds=4, spacing=2, seed=0)
+    plain = build_scheduler(sc, device="cpu")
+    plain.run(4, eval_every=2)
+    for sch in (_scheduler(sc, loss_fn=make_loss_fn(SYNTHETIC_LR),
+                           device="cpu", capacity=sc.capacity,
+                           max_samples=sc.max_samples, eta0=sc.eta0,
+                           **{name: Telemetry() if name == "telemetry"
+                              else True}),
+                build_scheduler(sc, device="cpu",
+                                **{name: Telemetry() if name == "telemetry"
+                                   else True})):
+        sch.run(4, eval_every=2)
+        sch.close()
+        assert [(h.tau, h.event, h.n_active) for h in sch.history] == \
+            [(h.tau, h.event, h.n_active) for h in plain.history]
+        if name == "telemetry":
+            assert sch.engine.telemetry is sch.telemetry
+            assert sch.telemetry.registry.get("sched_spans_total") \
+                .labels().value > 0
+            assert sch.prefetch_stats() == {}
+        else:
+            assert len(sch.bank) == len(sch.clients)
+            assert (sch._stager is not None) is (name == "prefetch")
+            assert sch.engine_config()[name] is True
+        if name == "prefetch":
+            assert sch.prefetch_stats()["hits"] > 0
