@@ -3,8 +3,9 @@
 round in plan and device mode, the compressed federated round, the client-sharded round, the
 paper's experiments with the client-sequential round, LM serving,
 Mamba2 SSD serving, the streamed federation's checkpoint and resume, the
-streaming scenario library through its CLI, and the tiered client bank
-with its cohort prefetch and the telemetry.
+streaming scenario library through its CLI, the tiered client bank
+with its cohort prefetch and the telemetry, and the live federation
+service with its fault injection and supervised recovery.
 
     python3 chip_smoke.py
 
@@ -173,7 +174,33 @@ it, and nothing of JAX or of the JAX package.  In order it
    ``sched_spans_total``, params bit-identical to the run without
    telemetry, and one span under ``Telemetry(trace_dir=)`` whose Chrome
    trace names weighted_agg and masked_sgd;
-13. times each kernel beside its bound, its plain version and the one
+13. drives the federation service (``FederationService``, ``fed_serve``,
+   ``fed_top``): (a) step 12's fleet through BANK_HOT slots with prefetch
+   in device mode, its rotation events submitted from the main thread
+   while the worker runs spans of SERVICE_SPAN rounds (serve_live: each
+   event a span ahead of its tau), against the same schedule preloaded
+   into a blocking scheduler: equal records, params bit-identical,
+   launches weighted_agg once and masked_sgd 8 leaves x E a round, every
+   event ingested and applied, no staging error; (b) the same fleet
+   supervised through tests/test_chaos.py's six faults (SERVICE_SOAK:
+   worker crash and hang, mid-span crash, write failure, corrupt
+   snapshot, a 256-event flood) with snapshots every span, the watchdog
+   at SERVICE_SPAN_TIMEOUT, merge-stale and the engine reused: every site
+   fired, at least 3 recoveries, each caused by an injected fault or the
+   watchdog's TimeoutError, the hang's by the latter, a snapshot failure,
+   256 events merged, no staging error after the last recovery, records
+   and params bit-identical to (a)'s preloaded run; MTTR, detection
+   latency and recovered rounds printed with weighted_agg's launches;
+   (c) ``python -m repro_torch.launch.fed_serve --scenario churn --chaos
+   7`` in a process of its own, its chaos block printed and its records
+   and params equal to the CLI's without --chaos; a flash-crowd trace
+   dumped and replayed with --trace against the paced run; flash-crowd
+   with --chaos and --metrics-out (faults_fired_total and the svc_*
+   counters in the dump); one FedTop frame of a live service, printed;
+   (d) warm rounds/s of the service and the blocking scheduler on (a)'s
+   schedule in turns, the service's busy, idle and overhead seconds and
+   its ingest lag;
+14. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (weighted_agg_quant from
    device memory and, beside it, from L2; for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
@@ -459,6 +486,31 @@ BANK_DWELL = 2
 BANK_ROUNDS = 24
 BANK_EVAL_EVERY = 8
 BANK_TURNS = 2
+# the federation service: the bank's fleet and rotation schedule served by a
+# FederationService in spans of SERVICE_SPAN rounds, the events submitted
+# from the main thread while the worker runs (serve_live); the chaos soak's
+# faults (site, at, kind, size, seconds) are tests/test_chaos.py's, under
+# its watchdog timeout; warm rounds/s of the service and the blocking
+# scheduler in SERVICE_TURNS rounds of turns
+SERVICE_SPAN = 4
+SERVICE_SOAK = (("worker", 1, "crash", 0, 0.0),
+                ("worker", 4, "hang", 0, 30.0),
+                ("sched_span", 6, "crash", 0, 0.0),
+                ("ckpt_save", 3, "io-error", 0, 0.0),
+                ("ckpt_written", 5, "corrupt", 16, 0.0),
+                ("flood", 2, "flood", 256, 0.0))
+SERVICE_SPAN_TIMEOUT = 2.0
+SERVICE_TURNS = 2
+# fed_serve's scenario traces submitted at this rate, so that each event
+# lands before its tau (at the CLI's default 50 a second the card's worker
+# runs past the first taus before their events are submitted)
+SERVICE_EVENTS_PER_S = "1000000"
+# fed_serve's chaos seeds: churn's (7) puts its hang in a generation that
+# has run no span yet, where the watchdog waits its warmup grace (10 x
+# --span-timeout); flash-crowd's metrics run takes a seed whose hang comes
+# after a span (4), so the phase pays that grace once
+SERVICE_CHURN_CHAOS = "7"
+SERVICE_METRICS_CHAOS = "4"
 # the reference's quickstart (examples/quickstart.py): SYNTHETIC(1, 1), 20
 # clients, logreg, scheme C, E 5, B 20, eta0 1.0, 50 rounds, eval every 5;
 # its accuracy after 50 rounds as the verify notes give it, and how far the
@@ -2811,17 +2863,28 @@ def scenario_path(dev, card: str) -> dict:
 
 
 # -- 12. the tiered client bank and its cohort prefetch ----------------------
-def bank_scheduler(dev, mode: str, capacity: int, prefetch: bool):
-    """The EMNIST fleet (make_clients' 62 clients at full width) on a
-    scheduler-built engine of ``capacity`` slots, the first BANK_HOT
-    founding and the rotation schedule pushed at the start."""
+def bank_rotation():
+    """make_clients' 62-client EMNIST fleet and the reference's rotation
+    schedule over it (BANK_HOT slots, dwell BANK_DWELL, BANK_ROUNDS
+    rounds): (clients, events)."""
+    from repro_torch.fed.scenarios import rotation_events
+    clients = make_clients()
+    for c in clients:                   # the events say who moves
+        c.active_from, c.departs_at = 0, None
+    return clients, rotation_events(clients, BANK_HOT, BANK_DWELL,
+                                    BANK_ROUNDS)
+
+
+def bank_scheduler(dev, mode: str, capacity: int, prefetch: bool,
+                   fleet=None, preload: bool = True):
+    """The EMNIST fleet at full width (``fleet``, bank_rotation()'s by
+    default) on a scheduler-built engine of ``capacity`` slots, the first
+    BANK_HOT founding and, with ``preload``, the rotation schedule pushed
+    at the start."""
     from repro_torch.configs.paper import EMNIST_CNN as cfg
     from repro_torch.fed import StreamScheduler
-    from repro_torch.fed.scenarios import rotation_events
     from repro_torch.models.small import init_small, make_loss_fn
-    clients = make_clients()
-    for c in clients:                   # the events below say who moves
-        c.active_from, c.departs_at = 0, None
+    clients, events = fleet if fleet is not None else bank_rotation()
     return StreamScheduler(
         clients=clients[:BANK_HOT],
         init_params=init_small(cfg, seed=0, device=dev),
@@ -2829,8 +2892,7 @@ def bank_scheduler(dev, mode: str, capacity: int, prefetch: bool):
         max_samples=max(c.n for c in clients),
         local_epochs=cfg.local_epochs, batch_size=cfg.batch_size,
         scheme="C", eta0=cfg.eta0, seed=0, mode=mode, prefetch=prefetch,
-        model_kind=cfg.kind, device=dev,
-        events=rotation_events(clients, BANK_HOT, BANK_DWELL, BANK_ROUNDS))
+        model_kind=cfg.kind, device=dev, events=events if preload else ())
 
 
 def check_stager(label: str, stats: dict, misses: bool = True) -> dict:
@@ -3139,7 +3201,403 @@ def bank_path(dev, card: str, n_leaves: int, uncut: dict) -> None:
     log(f"  bank phase: {time.perf_counter() - t0:.1f} s")
 
 
-# -- 13. timing ---------------------------------------------------------------
+# -- 13. the federation service ----------------------------------------------
+def serve_live(svc, events, rounds: int) -> None:
+    """Serve ``rounds`` rounds while this thread submits ``events``: the
+    worker runs spans of SERVICE_SPAN rounds and ingests at their
+    boundaries, so each event goes in at least a span ahead of its tau.
+    The round budget (``svc.max_rounds``) is raised a span at a time, each
+    time after every event with a tau up to a span past the new budget was
+    submitted, and again as soon as the worker starts the last span before
+    it: a late thread stalls the worker at its budget instead of handing it
+    an event after its tau.  Raises if the service stops short."""
+    events = sorted(events, key=lambda e: e.tau)      # stable: push order
+    j, budget = 0, 0
+    svc.max_rounds = 0
+    with svc:
+        while budget < rounds:
+            budget = min(rounds, budget + SERVICE_SPAN)
+            while j < len(events) and events[j].tau < budget + SERVICE_SPAN:
+                svc.submit(events[j])
+                j += 1
+            svc.max_rounds = budget
+            svc.resume()                  # wake a worker parked at the budget
+            if not svc.wait_rounds(budget - SERVICE_SPAN, timeout=600):
+                raise RuntimeError(f"the service stalled: {svc.stats()}")
+        svc.submit(*events[j:])
+        if not (svc.drain(timeout=600) and svc.wait_rounds(rounds,
+                                                           timeout=600)):
+            raise RuntimeError(f"the service stopped short: {svc.stats()}")
+
+
+def service_live(dev, n_leaves: int):
+    """Phase 13 (a): the EMNIST fleet through BANK_HOT slots with prefetch,
+    in device mode, its rotation events submitted from this thread while
+    the service's worker runs spans, against the same schedule preloaded
+    into a blocking scheduler: (blocking history, blocking params)."""
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.fed import FederationService
+    from repro_torch.kernels import ops
+    label = "service, events submitted live"
+    blocking = bank_scheduler(dev, "device", BANK_HOT, prefetch=True)
+    blocking.run(BANK_ROUNDS, eval_every=BANK_EVAL_EVERY)
+    torch.cuda.synchronize()
+    blocking.close()
+    fleet = bank_rotation()
+    sch = bank_scheduler(dev, "device", BANK_HOT, prefetch=True, fleet=fleet,
+                         preload=False)
+    svc = FederationService(sch, span_rounds=SERVICE_SPAN,
+                            eval_every=BANK_EVAL_EVERY)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    serve_live(svc, fleet[1], BANK_ROUNDS)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    want = expected_launches(
+        weighted_agg=BANK_ROUNDS,
+        masked_sgd=BANK_ROUNDS * n_leaves * cfg.local_epochs)
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches} != {want}")
+    st = svc.stats()
+    n_events = len(fleet[1])
+    counts = (st["events_submitted"], st["events_ingested"],
+              st["events_applied"])
+    if counts != (n_events,) * 3 or st["events_pending"]:
+        raise RuntimeError(f"{label}: {n_events} events; submitted, "
+                           f"ingested, applied {counts}, pending "
+                           f"{st['events_pending']}")
+    check_stager(label, st["prefetch"], misses=False)
+    same_run_records(label, sch.history, blocking.history)
+    for a, b in zip(sch.history, blocking.history):
+        if not math.isnan(a.loss) and (a.loss, a.acc) != (b.loss, b.acc):
+            raise RuntimeError(f"{label}: eval at tau={a.tau} differs")
+    n_diff, err = differing(sch.params, blocking.params)
+    if n_diff:
+        raise RuntimeError(f"{label}: {n_diff} param elements differ from "
+                           f"the preloaded run's (max {err:.3e})")
+    log(f"  {label}: {n_events} rotation events submitted from the main "
+        f"thread while the worker ran {st['spans_run']} spans of "
+        f"{SERVICE_SPAN} rounds; submitted, ingested and applied "
+        f"{counts[0]}, {counts[1]}, {counts[2]}; records equal and 0 of "
+        f"{sum(p.numel() for p in sch.params.values())} param elements "
+        f"differ from the same schedule preloaded into a blocking "
+        f"scheduler; launches weighted_agg {launches['weighted_agg']}, "
+        f"masked_sgd {launches['masked_sgd']} over {BANK_ROUNDS} rounds; "
+        f"{stager_line(st['prefetch'])}")
+    return blocking.history, blocking.params
+
+
+def service_chaos(dev, want_history, want_params) -> None:
+    """Phase 13 (b): the same fleet and schedule, supervised, through
+    SERVICE_SOAK's six faults with the engine reused in every recovery,
+    against (a)'s preloaded run."""
+    import shutil
+    from repro_torch.configs.paper import EMNIST_CNN as cfg
+    from repro_torch.fed import Fault, FaultPlan, FederationService
+    from repro_torch.kernels import ops
+    from repro_torch.models.small import make_loss_fn
+    label = "service chaos soak"
+    snapshots = ROOT / "build" / "service" / "soak"
+    shutil.rmtree(snapshots, ignore_errors=True)
+    fleet = bank_rotation()
+    sch = bank_scheduler(dev, "device", BANK_HOT, prefetch=True, fleet=fleet,
+                         preload=False)
+    sch.injector = FaultPlan([Fault(*f) for f in SERVICE_SOAK], seed=7)
+    engine = sch.engine
+    svc = FederationService(
+        sch, span_rounds=SERVICE_SPAN, eval_every=BANK_EVAL_EVERY,
+        max_rounds=BANK_ROUNDS, supervise=True, snapshot_dir=str(snapshots),
+        snapshot_every=1, keep_snapshots=4, backoff0=0.01, join_timeout=10.0,
+        span_timeout=SERVICE_SPAN_TIMEOUT, queue_policy="merge-stale",
+        max_queue=64, engine_factory=lambda: engine,
+        restore_kwargs=dict(loss_fn=make_loss_fn(cfg), eval_fn=emnist_eval))
+    svc.submit(*fleet[1])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with svc:
+        if not svc.wait_rounds(BANK_ROUNDS, timeout=600):
+            raise RuntimeError(f"{label}: stopped short: {svc.stats()}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    rep = svc.chaos_report()
+    recs = rep["recoveries"]
+    sites = {site for site, _, _ in rep["faults"]["fired"]}
+    causes = [r["cause"] for r in recs]
+    bad = [c for c in causes if not c.startswith(("InjectedFault(",
+                                                  "TimeoutError("))]
+    if bad:
+        raise RuntimeError(f"{label}: recoveries from faults that were not "
+                           f"injected: {bad}")
+    if sites != {"worker", "sched_span", "ckpt_save", "ckpt_written",
+                 "flood"} or rep["n_recoveries"] < 3 \
+            or rep["snapshot_failures"] < 1 or rep["events_merged"] != 256 \
+            or not any(c.startswith("TimeoutError(") for c in causes) \
+            or not all(r["engine_reused"] for r in recs):
+        raise RuntimeError(f"{label}: sites {sorted(sites)}, "
+                           f"{rep['n_recoveries']} recoveries, "
+                           f"{rep['snapshot_failures']} snapshot failures, "
+                           f"{rep['events_merged']} merged, causes {causes}, "
+                           f"engine reused "
+                           f"{[r['engine_reused'] for r in recs]}")
+    restored = svc.scheduler
+    if restored.engine is not engine or restored.engine.device != dev:
+        raise RuntimeError(f"{label}: the last generation runs on another "
+                           f"engine ({restored.engine.device})")
+    stager = check_stager(label, restored.prefetch_stats(), misses=False)
+    same_run_records(label, restored.history, want_history)
+    for a, b in zip(restored.history, want_history):
+        if not math.isnan(a.loss) and (a.loss, a.acc) != (b.loss, b.acc):
+            raise RuntimeError(f"{label}: eval at tau={a.tau} differs")
+    n_diff, err = differing(restored.params, want_params)
+    if n_diff:
+        raise RuntimeError(f"{label}: {n_diff} param elements differ from "
+                           f"the run without faults (max {err:.3e})")
+    served = BANK_ROUNDS + rep["recovered_rounds"]
+    if launches["weighted_agg"] < served:
+        raise RuntimeError(f"{label}: weighted_agg launched "
+                           f"{launches['weighted_agg']} times for {served} "
+                           f"rounds served and recovered")
+    log(f"  {label}: faults fired {rep['faults']['fired']}; "
+        f"{rep['n_recoveries']} recoveries, each onto the same engine, "
+        f"causes {causes}; snapshot failures {rep['snapshot_failures']}, "
+        f"events merged {rep['events_merged']}; records equal and 0 param "
+        f"elements differ from the run without faults; stage_errors "
+        f"{stager['stage_errors']} after the last recovery")
+    log(f"  {label}: MTTR mean {rep['mttr_mean_s']:.4f} s, max "
+        f"{rep['mttr_max_s']:.4f} s; detection latency mean "
+        f"{rep['detect_latency_mean_s']:.4f} s, max "
+        f"{rep['detect_latency_max_s']:.4f} s; per recovery (cause, "
+        f"detect s, mttr s, tau failed -> resumed, corrupt skipped, "
+        f"replayed): "
+        + "; ".join(f"{r['cause'].split('(')[0]} "
+                    f"{r['detect_latency_s']:.4f} {r['mttr_s']:.4f} "
+                    f"{r['tau_at_failure']}->{r['tau_resumed']} "
+                    f"{len(r['corrupt_skipped'])} {r['events_replayed']}"
+                    for r in recs)
+        + f"; recovered rounds {rep['recovered_rounds']}; weighted_agg "
+        f"launches {launches['weighted_agg']} beside {BANK_ROUNDS} rounds "
+        f"served + {rep['recovered_rounds']} recovered (a mid-span crash's "
+        f"torn rounds count in neither); wall {wall:.3f} s")
+
+
+def fed_serve_cli(args, path):
+    """fed_serve's main on the card, its scenario events submitted at
+    SERVICE_EVENTS_PER_S and its end state saved at ``path``: (summary,
+    history, params)."""
+    import shutil
+    from repro_torch.launch import fed_serve
+    shutil.rmtree(path, ignore_errors=True)
+    summary = fed_serve.main(list(args) + [
+        "--events-per-sec", SERVICE_EVENTS_PER_S, "--snapshot", str(path),
+        "--quiet"])
+    torch.cuda.synchronize()
+    return (summary,) + saved_run(path)
+
+
+def same_cli_run(label: str, got, want) -> None:
+    """Equal records (the eval rounds' losses too) and params, bit for
+    bit, of two fed_serve_cli runs."""
+    _, history, params = got
+    _, want_history, want_params = want
+    same_run_records(label, history, want_history)
+    for a, b in zip(history, want_history):
+        if not math.isnan(a.loss) and (a.loss, a.acc) != (b.loss, b.acc):
+            raise RuntimeError(f"{label}: eval at tau={a.tau} differs")
+    n_diff = sum(int(np.sum(params[k] != v)) for k, v in want_params.items())
+    if n_diff:
+        raise RuntimeError(f"{label}: {n_diff} param elements differ")
+
+
+def service_cli(dev) -> None:
+    """Phase 13 (c): fed_serve on the card: churn with --chaos against the
+    run without, a flash-crowd trace dumped and replayed against the paced
+    run, flash-crowd with --chaos and --metrics-out; then one FedTop frame
+    of a live service."""
+    from repro_torch.fed import FederationService
+    from repro_torch.fed.scenarios import build_scheduler, make_scenario
+    from repro_torch.launch import fed_serve
+    from repro_torch.launch.fed_top import FedTop
+    from repro_torch.obs import Telemetry
+    import os
+    import shutil
+    out = ROOT / "build" / "service"
+    out.mkdir(parents=True, exist_ok=True)
+    timeout = ["--span-timeout", f"{SERVICE_SPAN_TIMEOUT:g}"]
+    # the churn soak as a user runs it, in a process of its own
+    path, summary_path = out / "churn-chaos", out / "churn-chaos.json"
+    shutil.rmtree(path, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.fed_serve",
+           "--scenario", "churn", "--chaos", SERVICE_CHURN_CHAOS] + timeout + [
+           "--chaos-dir", str(out / "churn-snapshots"), "--events-per-sec",
+           SERVICE_EVENTS_PER_S, "--snapshot", str(path), "--json",
+           str(summary_path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env={**os.environ,
+                                            "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode:
+        raise RuntimeError(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    log(f"  python -m repro_torch.launch.fed_serve --scenario churn --chaos "
+        f"{SERVICE_CHURN_CHAOS} {' '.join(timeout)} "
+        f"({time.perf_counter() - t0:.1f} s, process start included):")
+    for line in proc.stdout.splitlines():
+        log(f"    {line}")
+    churn = (json.loads(summary_path.read_text()),) + saved_run(path)
+    plain = fed_serve_cli(["--scenario", "churn"], out / "churn")
+    same_cli_run("fed_serve churn --chaos", churn, plain)
+    block = churn[0]["chaos"]
+    causes = [r["cause"] for r in block["recoveries"]]
+    if not block["n_recoveries"] or not all(
+            c.startswith(("InjectedFault(", "TimeoutError(")) for c in causes):
+        raise RuntimeError(f"fed_serve churn --chaos: recoveries {causes}")
+    log(f"  its records and params equal the same CLI's without --chaos "
+        f"({churn[0]['rounds_served']} rounds, {churn[0]['rounds_per_sec']} "
+        f"rounds/s against {plain[0]['rounds_per_sec']}); its chaos block: "
+        + json.dumps({k: v for k, v in block.items() if k != "recoveries"})
+        + f"; causes {causes}")
+
+    trace = out / "flash-crowd.jsonl"
+    fed_serve.main(["--scenario", "flash-crowd", "--dump-trace", str(trace),
+                    "--events-per-sec", SERVICE_EVENTS_PER_S, "--quiet"])
+    replayed = fed_serve_cli(["--scenario", "flash-crowd", "--trace",
+                              str(trace)], out / "flash-crowd-trace")
+    paced = fed_serve_cli(["--scenario", "flash-crowd"], out / "flash-crowd")
+    same_cli_run("fed_serve flash-crowd --trace", replayed, paced)
+    n_lines = len(trace.read_text().splitlines())
+    log(f"  fed_serve flash-crowd --dump-trace ({n_lines} events, "
+        f"{trace.stat().st_size} bytes), then --trace: records and params "
+        f"equal the paced scenario run ({paced[0]['events_applied']} events "
+        f"applied)")
+
+    jsonl, prom = out / "flash-crowd-chaos.jsonl", out / "flash-crowd.prom"
+    for path in (jsonl, prom):
+        path.unlink(missing_ok=True)
+    metered = fed_serve_cli(["--scenario", "flash-crowd", "--metrics-out",
+                             str(jsonl), "--prom-out", str(prom), "--chaos",
+                             SERVICE_METRICS_CHAOS] + timeout + [
+        "--chaos-dir", str(out / "flash-crowd-snapshots")],
+        out / "flash-crowd-chaos")
+    same_cli_run("fed_serve flash-crowd --chaos --metrics-out", metered,
+                 paced)
+    recs = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    metrics = {r["name"]: r for r in recs if r["kind"] != "span"}
+    fired = {f"{s['labels']['site']}/{s['labels']['kind']}": s["value"]
+             for s in metrics.get("faults_fired_total",
+                                  {"samples": []})["samples"]}
+    svc_counters = {name: r["samples"][0]["value"]
+                    for name, r in sorted(metrics.items())
+                    if name.startswith("svc_") and r["kind"] == "counter"}
+    n_fired = len(metered[0]["chaos"]["faults"]["fired"])
+    if sum(fired.values()) != n_fired or \
+            svc_counters.get("svc_events_ingested_total") != 12 or \
+            svc_counters.get("svc_recoveries_total") != \
+            metered[0]["chaos"]["n_recoveries"]:
+        raise RuntimeError(f"{jsonl.name}: faults_fired_total {fired} "
+                           f"({n_fired} fired), svc counters {svc_counters}")
+    log(f"  fed_serve flash-crowd --chaos {SERVICE_METRICS_CHAOS} "
+        f"--metrics-out --prom-out: "
+        f"records and params equal the paced run's; faults_fired_total "
+        f"{fired}; "
+        + ", ".join(f"{k} {v:.6g}" for k, v in svc_counters.items())
+        + f"; {len(recs)} JSONL lines, "
+        f"{len(prom.read_text().splitlines())} prom lines")
+
+    sc = make_scenario("flash-crowd")
+    events, sc.events = sc.events, []
+    sch = build_scheduler(sc, device=dev, telemetry=Telemetry())
+    svc = FederationService(sch, span_rounds=SERVICE_SPAN,
+                            eval_every=sc.eval_every, max_rounds=sc.n_rounds)
+    svc.submit(*events)
+    with svc:
+        if not svc.wait_rounds(sc.n_rounds // 2, timeout=300):
+            raise RuntimeError(f"fed_top's service: {svc.stats()}")
+        top = FedTop(svc)
+        top.frame()
+        frame = top.frame()
+        if not svc.wait_rounds(sc.n_rounds, timeout=300):
+            raise RuntimeError(f"fed_top's service: {svc.stats()}")
+    if "fed_top" not in frame or "paper" not in frame:
+        raise RuntimeError(f"FedTop frame:\n{frame}")
+    log("  FedTop(svc).frame() against a live flash-crowd service:")
+    for line in frame.rstrip("\n").splitlines():
+        log(f"    {line}")
+
+
+def quantile_bound(hist, q: float) -> float:
+    """The upper bound of the bucket that holds the q-quantile of a
+    histogram child (its buckets() are cumulative)."""
+    want = q * hist.count
+    for bound, cum in hist.buckets():
+        if cum >= want:
+            return bound
+    return math.inf
+
+
+def service_timing(dev, card: str) -> None:
+    """Phase 13 (d): warm rounds/s of the service (events submitted live,
+    as in (a)) and of the blocking scheduler (events preloaded) on (a)'s
+    schedule, no eval, in turns; the service's busy, idle and overhead
+    seconds and its ingest lag."""
+    from repro_torch.fed import FederationService
+    rates = {"blocking": [], "service": []}
+    last = None
+    for kind in ["blocking", "service", "service",
+                 "blocking"] * SERVICE_TURNS:
+        if kind == "blocking":
+            sch = bank_scheduler(dev, "device", BANK_HOT, prefetch=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sch.run(BANK_ROUNDS, eval_every=NO_EVAL)
+            torch.cuda.synchronize()
+        else:
+            fleet = bank_rotation()
+            sch = bank_scheduler(dev, "device", BANK_HOT, prefetch=True,
+                                 fleet=fleet, preload=False)
+            last = FederationService(sch, span_rounds=SERVICE_SPAN,
+                                     eval_every=NO_EVAL)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve_live(last, fleet[1], BANK_ROUNDS)
+            torch.cuda.synchronize()
+        rates[kind].append(BANK_ROUNDS / (time.perf_counter() - t0))
+        sch.close()
+        del sch
+    reg = last._registry                 # null telemetry: the private one
+    busy, idle, over = (reg.get(f"svc_{k}_seconds_total").labels().value
+                        for k in ("busy", "idle", "overhead"))
+    lag = reg.get("svc_ingest_lag_seconds").labels()
+
+    def listed(values):
+        return ", ".join(f"{v:.3f}" for v in values)
+    log(f"  EMNIST fleet, device mode, {BANK_ROUNDS} rounds a window, no "
+        f"eval, in turns (blocking, service, service, blocking) x "
+        f"{SERVICE_TURNS}: rounds/s blocking {listed(rates['blocking'])}; "
+        f"service {listed(rates['service'])}; the last service window: "
+        f"busy {busy:.6f} s, idle {idle:.6f} s, overhead {over:.6f} s; "
+        f"ingest lag of {lag.count} events: mean "
+        f"{lag.sum / max(1, lag.count):.6f} s, p50 <= "
+        f"{quantile_bound(lag, 0.5):g} s, p99 <= "
+        f"{quantile_bound(lag, 0.99):g} s (bucket bounds); on {card}")
+
+
+def service_path(dev, card: str, n_leaves: int) -> None:
+    """Phase 13: the federation service with its supervisor and faults,
+    through the entry points, on the card."""
+    t0 = time.perf_counter()
+    log(f"federation service: the EMNIST fleet ({N_CLIENTS} clients, "
+        f"{BANK_HOT} slots, prefetch) served live, a supervised chaos soak, "
+        f"fed_serve and fed_top; on {card}")
+    want_history, want_params = service_live(dev, n_leaves)
+    service_chaos(dev, want_history, want_params)
+    service_cli(dev)
+    service_timing(dev, card)
+    log(f"  service phase: {time.perf_counter() - t0:.1f} s")
+
+
+# -- 14. timing ---------------------------------------------------------------
 def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for `spin` cycles (a few tens
@@ -3648,6 +4106,7 @@ def main() -> None:
     checkpoint_path(dev, len(leaves), card)
     uncut = scenario_path(dev, card)
     bank_path(dev, card, len(leaves), uncut)
+    service_path(dev, card, len(leaves))
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)

@@ -4,6 +4,9 @@ from repro_torch.fed.driver import Client, FederatedTrainer, RoundRecord
 from repro_torch.fed.engine import RoundEngine
 from repro_torch.fed.events import (Arrival, Departure, InactivityBurst,
                                     ParticipationEvent, TraceShift)
+from repro_torch.fed.faults import (Fault, FaultPlan, InjectedFault,
+                                    InjectedWriteError)
+from repro_torch.fed.service import FederationService
 from repro_torch.fed.sharding import FedSharding, make_fed_sharding
 from repro_torch.fed.state import FedState
 from repro_torch.fed.stream import StreamScheduler
@@ -14,4 +17,5 @@ __all__ = ["CompressionSpec", "resolve_compression", "Client",
            "Departure", "TraceShift", "InactivityBurst",
            "ParticipationEvent", "FedSharding", "make_fed_sharding",
            "FedState", "StreamScheduler", "ArrayTask", "BufferSpec",
-           "ClientTask"]
+           "ClientTask", "Fault", "FaultPlan", "InjectedFault",
+           "InjectedWriteError", "FederationService"]

@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/fed/stream.py``'s ``StreamScheduler``, with its
 checkpoint and resume, its tiered client bank and cohort prefetch
-(``fed/bank.py``) and its telemetry (``repro_torch.obs``); fault
-injection and the span log come with ``fed/faults.py`` and
-``fed/fuzz.py`` (ROADMAP items 4 and 5).  At each span start the
+(``fed/bank.py``), its telemetry (``repro_torch.obs``) and its fault
+hook (``injector=``, a ``fed/faults.FaultPlan``); the span log comes with
+``fed/fuzz.py`` (ROADMAP item 5).  At each span start the
 scheduler pops every queued event with tau <= now, applies it to the
 FedState and executes the slot actions it returns against the
 RoundEngine (consecutive admits land as one burst; evicts and trace
@@ -69,8 +69,7 @@ REFERENCE_CHUNK_SIZE = 16
 
 # the reference's scheduler arguments the port does not have yet, with the
 # ROADMAP item that brings each
-UNPORTED = {"injector": "ROADMAP item 4, fed/faults.py",
-            "log_spans": "ROADMAP item 5, fed/fuzz.py"}
+UNPORTED = {"log_spans": "ROADMAP item 5, fed/fuzz.py"}
 # the reference's jax-only arguments: Pallas interpret mode and buffer
 # donation have no meaning in the port (a CPU tensor takes a kernel's plain
 # version; torch frees what it no longer references)
@@ -122,10 +121,16 @@ class StreamScheduler:
     engine shares it.  ``bank`` (True, or a configured ``ClientBank``)
     and ``prefetch`` (implies a bank) are the reference's tiered store and
     cohort prefetch (``fed/bank.py``); ``close()`` stops the staging
-    thread and ``prefetch_stats()`` reads its counters.  ``injector`` and
-    ``log_spans`` (not ported yet) and ``interpret`` and ``donate``
-    (jax's) are accepted only at their null defaults: anything else raises
-    ValueError (``refuse_unported``).
+    thread and ``prefetch_stats()`` reads its counters.  ``injector`` (a
+    ``fed/faults.FaultPlan``, or anything with its ``fire(site, **ctx)``)
+    is consulted at the site ``"sched_span"`` at the top of every span
+    iteration of ``run``, where a crash leaves the scheduler torn as the
+    reference's (the spans already run recorded, ``next_tau`` stale), and
+    is handed to ``save``'s checkpoint writes (``"ckpt_save"``,
+    ``"ckpt_written"``).  ``log_spans`` (not ported yet; ``span_log`` stays
+    None) and ``interpret`` and ``donate`` (jax's) are accepted only at
+    their null defaults: anything else raises ValueError
+    (``refuse_unported``).
     """
 
     def __init__(self, *, clients: Sequence[Client] = (), init_params,
@@ -157,9 +162,13 @@ class StreamScheduler:
                  device=None, model_kind: Optional[str] = None):
         if mode not in ("device", "plan"):
             raise ValueError(f"mode must be device|plan, got {mode!r}")
-        refuse_unported(injector=injector, log_spans=log_spans,
-                        interpret=interpret, donate=donate)
+        refuse_unported(log_spans=log_spans, interpret=interpret,
+                        donate=donate)
         self.mode = mode
+        self.injector = injector
+        # the reference's span log (log_spans=True, fed/fuzz.py): the
+        # service reads whether it is on when it restores a scheduler
+        self.span_log: Optional[List[tuple]] = None
         # telemetry: a reused engine keeps its own, a built one shares the
         # scheduler's
         self.telemetry = resolve_telemetry(telemetry)
@@ -454,6 +463,8 @@ class StreamScheduler:
         pending = []      # (tau, end, ev_label, device metrics, eval)
         try:
             while tau < stop:
+                if self.injector is not None:
+                    self.injector.fire("sched_span", tau=tau)
                 ev = self._apply_events(tau)
                 end = st.span_end(tau, stop, ev, eval_every)
                 if self._stager is not None:
@@ -597,7 +608,8 @@ class StreamScheduler:
             path, reference_params(self.params, self.engine.model_kind),
             self.state.to_dict(), history=history_to_dict(self.history),
             config=self.engine_config(), extra=extra,
-            telemetry=self.telemetry, client_chunks=client_chunks)
+            injector=self.injector, telemetry=self.telemetry,
+            client_chunks=client_chunks)
 
     @classmethod
     def restore(cls, path: str, *, loss_fn: Optional[Callable] = None,
@@ -605,7 +617,8 @@ class StreamScheduler:
                 eval_fn: Optional[Callable] = None,
                 evaluate: Optional[Callable] = None,
                 engine: Optional[RoundEngine] = None, sharding=None,
-                telemetry=None, **overrides) -> "StreamScheduler":
+                injector=None, log_spans: bool = False, telemetry=None,
+                **overrides) -> "StreamScheduler":
         """Rebuild a scheduler from a checkpoint that either package's
         ``save()`` wrote.  The engine is rebuilt on ``device`` (the CUDA
         device unless ``device="cpu"``) from the persisted geometry, or
@@ -616,13 +629,18 @@ class StreamScheduler:
         Only the callables (``loss_fn`` or ``task``, ``eval_fn`` or
         ``evaluate``) are the caller's to supply.  ``model_kind`` (the
         checkpoint's own, else None) fixes the layout the params are read
-        in; ``overrides`` replace entries of the persisted geometry.  The
+        in; ``injector`` goes to the restored scheduler (``log_spans``, not
+        ported yet, only at False); ``overrides`` replace entries of the
+        persisted geometry.  A reused ``engine`` must be driven by no other
+        thread (the service's supervisor reuses one only after joining
+        the worker that drove it).  The
         bank and the stager are rebuilt from the restored clients when the
         config says ``bank`` or ``prefetch`` (their contents are derived
         state, never persisted raw).
 
         Raises ``checkpoint.CorruptCheckpointError`` when the checkpoint
         fails its checksum."""
+        refuse_unported(log_spans=log_spans)
         params, state_dict, history, config, _extra = \
             load_fed_checkpoint(path, telemetry=telemetry)
         cfg = dict(config)
@@ -672,7 +690,7 @@ class StreamScheduler:
                    engine=engine, state=state, mode=cfg["mode"],
                    eval_fn=eval_fn, evaluate=evaluate,
                    history=history_from_dict(history), telemetry=telemetry,
-                   bank=cfg.get("bank", False),
+                   injector=injector, bank=cfg.get("bank", False),
                    prefetch=cfg.get("prefetch", False))
 
 

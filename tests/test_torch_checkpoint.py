@@ -902,6 +902,62 @@ def test_restore_of_a_flipped_byte_raises_corrupt(tmp_path):
                                 device="cpu")
 
 
+def test_restore_hands_the_injector_to_the_scheduler(tmp_path):
+    """restore(injector=) gives the restored scheduler that injector (it is
+    not swallowed into the geometry's overrides), and log_spans is refused
+    by name until the span log is ported."""
+    sch = port_scheduler("plan")
+    sch.run(2, eval_every=EVAL_EVERY)
+    sch.save(str(tmp_path / "c"))
+    plan = port_fed.FaultPlan([port_fed.Fault("sched_span", 0, "crash")])
+    res = StreamScheduler.restore(str(tmp_path / "c"), device="cpu",
+                                  loss_fn=make_loss_fn(SYNTHETIC_LR),
+                                  injector=plan)
+    assert res.injector is plan and res.span_log is None
+    assert "injector" not in res.engine_config()
+    with pytest.raises(port_fed.InjectedFault):
+        res.run(2, eval_every=EVAL_EVERY)    # the plan fires in run()
+    assert plan.fired == [("sched_span", 0, "crash")]
+    with pytest.raises(ValueError, match="log_spans"):
+        StreamScheduler.restore(str(tmp_path / "c"), device="cpu",
+                                loss_fn=make_loss_fn(SYNTHETIC_LR),
+                                log_spans=True)
+
+
+def test_scheduler_save_fires_the_injectors_sites(tmp_path):
+    """A scheduler's save() hands its injector to the checkpoint writer: an
+    injected io-error at ckpt_save raises InjectedWriteError and leaves the
+    previous checkpoint loadable (tests/test_checkpoint_robustness.py's
+    case, through the scheduler), and a corrupt fault at ckpt_written
+    leaves a checkpoint that fails its checksum."""
+    path = str(tmp_path / "c")
+    plain = port_scheduler("plan")
+    plain.run(2, eval_every=EVAL_EVERY)
+    plain.save(path)
+    faulty = port_scheduler("plan", injector=port_fed.FaultPlan(
+        [port_fed.Fault("ckpt_save", 0, "io-error")]))
+    faulty.run(4, eval_every=EVAL_EVERY)
+    with pytest.raises(port_fed.InjectedWriteError):
+        faulty.save(path)
+    assert faulty.injector.fired == [("ckpt_save", 0, "io-error")]
+    assert not [f for f in os.listdir(path) if f.endswith(".tmp")]
+    res = StreamScheduler.restore(path, device="cpu",
+                                  loss_fn=make_loss_fn(SYNTHETIC_LR))
+    assert res._next_tau == 2                # the old run, not the torn one
+    assert_params_equal(res.params, plain.params)
+    faulty.save(path)                        # the plan's only fault is spent
+    assert StreamScheduler.restore(path, device="cpu",
+                                   loss_fn=make_loss_fn(SYNTHETIC_LR)) \
+        ._next_tau == 4
+    rotten = port_scheduler("plan", injector=port_fed.FaultPlan(
+        [port_fed.Fault("ckpt_written", 0, "corrupt", size=16)], seed=3))
+    rotten.save(path)
+    assert rotten.injector.fired == [("ckpt_written", 0, "corrupt")]
+    with pytest.raises(CorruptCheckpointError, match="checksum"):
+        StreamScheduler.restore(path, device="cpu",
+                                loss_fn=make_loss_fn(SYNTHETIC_LR))
+
+
 def test_engine_config_carries_every_key_the_reference_reads():
     sch = port_scheduler("plan")
     cfg = sch.engine_config()

@@ -606,3 +606,97 @@ def test_prefetching_scheduler_on_the_card_is_the_resident_one(card, mode):
         assert (a.s == b.s).all()
     for k, v in plain.params.items():
         assert torch.equal(banked.params[k], v), k
+
+
+def _flash_crowd_service_runs(plan=None, tmp_path=None, **sched):
+    """flash-crowd (12 rounds, prefetch) on the card through a
+    FederationService, its events submitted before the worker starts
+    (spans of 2 rounds, supervised with the engine reused when ``plan`` is
+    given), beside the same schedule preloaded into a blocking
+    scheduler: (service, blocking scheduler)."""
+    from repro_torch.configs.paper import SYNTHETIC_LR as cfg
+    from repro_torch.fed import FederationService
+    from repro_torch.fed.scenarios import (_paper_eval_fn, build_scheduler,
+                                           make_scenario)
+    from repro_torch.models.small import make_loss_fn
+    sc = make_scenario("flash-crowd", n_rounds=12, arrive_at=4, stay=4)
+    blocking = build_scheduler(sc, prefetch=True, **sched)
+    blocking.run(12, eval_every=4)
+    blocking.close()
+    events, sc.events = sc.events, []
+    sch = build_scheduler(sc, prefetch=True, **sched)
+    kw = {}
+    if plan is not None:
+        sch.injector = plan
+        eng = sch.engine
+        kw = dict(supervise=True, snapshot_dir=str(tmp_path),
+                  snapshot_every=1, backoff0=0.01, span_timeout=2.0,
+                  engine_factory=lambda: eng,
+                  restore_kwargs=dict(loss_fn=make_loss_fn(cfg),
+                                      eval_fn=_paper_eval_fn()))
+    svc = FederationService(sch, span_rounds=2, eval_every=4, max_rounds=12,
+                            **kw)
+    svc.submit(*events)
+    with svc:
+        assert svc.wait_rounds(12, timeout=300), svc.stats()
+    torch.cuda.synchronize()
+    return svc, blocking
+
+
+def _same_run(got, want):
+    for a, b in zip(got.history, want.history, strict=True):
+        assert (a.tau, a.eta, a.n_active, a.event) == \
+            (b.tau, b.eta, b.n_active, b.event)
+        assert (a.s == b.s).all()
+    for k, v in want.params.items():
+        assert torch.equal(got.params[k], v), k
+
+
+def test_service_worker_on_the_card_with_the_staging_stream(card):
+    """A worker generation runs its spans on the card while the bank's
+    stager stages the crowd on its own stream: every arrival a hit, no
+    staging error, the blocking run's records and params bit for bit."""
+    svc, blocking = _flash_crowd_service_runs()
+    st = svc.stats()
+    assert st["events_ingested"] == st["events_applied"] == 12
+    assert st["prefetch"]["hits"] == 6 and st["prefetch"]["misses"] == 0
+    assert st["prefetch"]["stager"]["stage_errors"] == 0
+    _same_run(svc.scheduler, blocking)
+
+
+def test_recovery_reuses_the_engine_while_a_cohort_stages(card, tmp_path):
+    """A worker crash at the boundary where the crowd's cohort is in flight
+    on the staging stream, and a mid-span crash after it: the supervisor
+    joins the worker, closes its scheduler (the stager retired) and
+    restores onto the same engine; the run is the fault-free one bit for
+    bit, and the restored stager stages without error."""
+    from repro_torch.fed import Fault, FaultPlan
+    plan = FaultPlan([Fault("worker", 2, "crash"),
+                      Fault("sched_span", 5, "crash")])
+    svc, blocking = _flash_crowd_service_runs(plan, tmp_path)
+    rep = svc.chaos_report()
+    assert rep["n_recoveries"] == 2
+    assert all(r["engine_reused"] and "InjectedFault" in r["cause"]
+               for r in rep["recoveries"])
+    assert svc.scheduler.engine.device == card
+    assert svc.scheduler.prefetch_stats()["stager"]["stage_errors"] == 0
+    _same_run(svc.scheduler, blocking)
+
+
+def test_service_worker_enters_the_engines_device(card):
+    """Each worker generation's thread runs with the engine's card current
+    (a new thread's current device is device 0): here the last card."""
+    from repro_torch.fed import FederationService
+    from repro_torch.fed.scenarios import build_scheduler, make_scenario
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    sch = build_scheduler(make_scenario("churn", n_rounds=4), device=dev)
+    seen = []
+    run = sch.run
+
+    def recorded(n_rounds, eval_every=1):
+        seen.append(torch.cuda.current_device())
+        return run(n_rounds, eval_every=eval_every)
+    sch.run = recorded
+    with FederationService(sch, span_rounds=2, max_rounds=4) as svc:
+        assert svc.wait_rounds(4, timeout=120)
+    assert seen == [dev.index, dev.index]

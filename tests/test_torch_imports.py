@@ -32,7 +32,9 @@ for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
              "repro_torch.fed.scenarios", "repro_torch.launch.fed_stream",
              "repro_torch.fed.bank", "repro_torch.obs",
              "repro_torch.obs.metrics", "repro_torch.obs.tracing",
-             "repro_torch.obs.telemetry", "repro_torch.obs.fedmetrics"):
+             "repro_torch.obs.telemetry", "repro_torch.obs.fedmetrics",
+             "repro_torch.fed.faults", "repro_torch.fed.service",
+             "repro_torch.launch.fed_serve", "repro_torch.launch.fed_top"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -141,3 +143,22 @@ def test_streaming_entry_points_refuse_to_run_without_cuda(monkeypatch):
     sch = build_scheduler(sc, prefetch=True, device="cpu")
     assert sch._stager._stream is None      # the CPU: no staging stream
     sch.close()
+
+
+def test_service_entry_points_refuse_to_run_without_cuda(monkeypatch,
+                                                        tmp_path):
+    from repro_torch.launch import fed_serve, fed_top
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (fed_serve.main, fed_top.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--scenario", "churn", "--rounds", "1", "--quiet"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed_serve.main(["--scenario", "churn", "--rounds", "1", "--quiet",
+                        "--chaos", "7", "--chaos-dir", str(tmp_path)])
+    # the trace dump runs nothing on a device; asked for, the CPU serves
+    assert fed_serve.main(["--scenario", "churn", "--quiet", "--dump-trace",
+                           str(tmp_path / "t.jsonl")])["events"] == 6
+    assert fed_serve.main(["--scenario", "churn", "--rounds", "1",
+                           "--quiet", "--device", "cpu"])["rounds"] == 1
+    assert fed_serve.build_round_kernels(torch.device("cpu")) == {}

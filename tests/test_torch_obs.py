@@ -19,8 +19,10 @@ reference's (``repro.obs``).
   does not time anything is equal (``engine_traces_total`` excepted: the
   reference counts its compiles there, the port compiles nothing); each
   span name is recorded as many times.
-
-The service and ``fed_top`` cases wait for their modules (ROADMAP item 4).
+- The service and ``fed_top`` cases of ``tests/test_telemetry.py``: a
+  service's counters work with the null telemetry (a private registry
+  backs ``drain()`` and ``stats()``), and ``FedTop.frame()`` renders
+  headlessly against a live service, with and without telemetry.
 """
 import json
 import math
@@ -409,3 +411,62 @@ def test_trace_dir_writes_a_chrome_trace_of_each_span(tmp_path):
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
     assert tel.registry.get("engine_spans_total").labels().value == 2
+
+
+# -- the service and fed_top ---------------------------------------------------
+
+NO_EVAL = 1 << 30
+
+
+def test_service_counters_work_without_telemetry():
+    """drain()/stats() rely on functional counters even when the shared
+    telemetry is the null object: the service keeps a private
+    registry."""
+    from repro_torch.core.participation import TRACES
+    from repro_torch.fed import TraceShift
+    from repro_torch.fed.service import FederationService
+    from test_torch_bank import make_clients, make_scheduler
+    sch = make_scheduler(make_clients(4, seed=0), seed=0)
+    svc = FederationService(sch, span_rounds=2, eval_every=NO_EVAL,
+                            max_rounds=8)
+    assert not svc.telemetry.enabled
+    with svc:
+        assert svc.submit(TraceShift(0, client_id=0, trace=TRACES[2]))
+        assert svc.drain(timeout=30)
+        assert svc.wait_rounds(8, timeout=60)
+    st = svc.stats()
+    assert st["events_submitted"] == st["events_ingested"] == 1
+    rep = svc.chaos_report()
+    assert rep["detect_latency_mean_s"] == 0.0
+    assert rep["n_recoveries"] == 0
+    assert svc._registry.get("svc_spans_total").labels().value \
+        == st["spans_run"] >= 4
+
+
+def test_fed_top_renders_headlessly_against_live_service():
+    from repro_torch.fed.service import FederationService
+    from repro_torch.launch.fed_top import FedTop
+    from test_torch_bank import make_clients, make_scheduler
+    tel = Telemetry()
+    sch = make_scheduler(make_clients(4, seed=0), seed=0, telemetry=tel)
+    svc = FederationService(sch, span_rounds=2, eval_every=NO_EVAL,
+                            max_rounds=8)
+    with svc:
+        svc.wait_rounds(8, timeout=60)
+        top = FedTop(svc)
+        frame1 = top.frame()
+        frame2 = top.frame()              # second frame: rate available
+    for needle in ("fed_top", "rounds", "events", "service", "paper",
+                   "tau=8"):
+        assert needle in frame2, frame2
+    assert "r/s" in frame2                # rate needs two frames
+    assert frame1.count("\n") >= 6
+
+    # null-telemetry service still renders (registry-backed counters)
+    sch2 = make_scheduler(make_clients(4, seed=0), seed=0)
+    svc2 = FederationService(sch2, span_rounds=2, eval_every=NO_EVAL,
+                             max_rounds=4)
+    with svc2:
+        svc2.wait_rounds(4, timeout=60)
+        frame = FedTop(svc2).frame()
+    assert "fed_top" in frame and "paper" not in frame

@@ -5,7 +5,7 @@ reboot_radius}``, ``core/departures.{crossing_round,
 shift_weights_departure}``, ``ClientTask.init_params``/``param_specs``,
 and ``StreamScheduler``'s engine-building constructor, its views, the
 reference's arguments it now takes (``telemetry``, ``bank``,
-``prefetch``) and its refusals of what is not ported yet."""
+``prefetch``, ``injector``) and its refusals of what is not ported yet."""
 import numpy as np
 import pytest
 import torch
@@ -192,8 +192,8 @@ def test_views_read_the_state():
     assert sorted(sch.free_slots) == [10, 11]
 
 
-REFUSED = [("injector", object(), "item 4"), ("log_spans", True, "item 5"),
-           ("interpret", True, "jax-only"), ("donate", True, "jax-only")]
+REFUSED = [("log_spans", True, "item 5"), ("interpret", True, "jax-only"),
+           ("donate", True, "jax-only")]
 
 
 @pytest.mark.parametrize("name,value,item", REFUSED,
@@ -254,3 +254,37 @@ def test_ported_arguments_are_accepted(name):
             assert sch.engine_config()[name] is True
         if name == "prefetch":
             assert sch.prefetch_stats()["hits"] > 0
+
+
+@pytest.mark.parametrize("mode", ["device", "plan"])
+def test_injector_tears_the_scheduler_where_the_references_tears(mode):
+    """StreamScheduler(injector=) consults the plan at "sched_span" at the
+    top of every span iteration of run(): a crash at the third leaves the
+    port's scheduler torn as the reference's is (the spans already run
+    flushed into the history, next_tau stale, the crash's own boundary's
+    events not applied), and a later run() resumes from the torn state
+    with the reference's records."""
+    import repro.fed as ref_fed
+    from repro.fed import scenarios as ref_scenarios
+    from repro_torch.fed import Fault, FaultPlan, InjectedFault
+    from repro_torch.fed.scenarios import build_scheduler
+
+    def torn(sch, pkg_fault):
+        with pytest.raises(pkg_fault):
+            sch.run(8, eval_every=4)
+        torn_at = (len(sch.history), sch._next_tau, sch.events_applied)
+        sch.run(8, eval_every=4)
+        return torn_at, [(h.tau, h.event, h.n_active) for h in sch.history]
+
+    sc = make_scenario("staggered", n_rounds=8, spacing=2, seed=0)
+    port = build_scheduler(sc, device="cpu", mode=mode)
+    port.injector = FaultPlan([Fault("sched_span", 2, "crash")])
+    ref = ref_scenarios.build_scheduler(
+        ref_scenarios.make_scenario("staggered", n_rounds=8, spacing=2,
+                                    seed=0), mode=mode)
+    ref.injector = ref_fed.FaultPlan([ref_fed.Fault("sched_span", 2,
+                                                    "crash")])
+    got, want = torn(port, InjectedFault), torn(ref, ref_fed.InjectedFault)
+    assert got == want
+    assert got[0][0] > 0 and got[0][1] == 0   # flushed, clock stale
+    assert port.injector.fired == [("sched_span", 2, "crash")]
