@@ -4,8 +4,9 @@ round in plan and device mode, the compressed federated round, the client-sharde
 paper's experiments with the client-sequential round, LM serving,
 Mamba2 SSD serving, the streamed federation's checkpoint and resume, the
 streaming scenario library through its CLI, the tiered client bank
-with its cohort prefetch and the telemetry, and the live federation
-service with its fault injection and supervised recovery.
+with its cohort prefetch and the telemetry, the live federation
+service with its fault injection and supervised recovery, and the
+event-stream fuzzer with the theory-scored validator.
 
     python3 chip_smoke.py
 
@@ -200,7 +201,36 @@ it, and nothing of JAX or of the JAX package.  In order it
    (d) warm rounds/s of the service and the blocking scheduler on (a)'s
    schedule in turns, the service's busy, idle and overhead seconds and
    its ingest lag;
-14. times each kernel beside its bound, its plain version and the one
+14. drives the event-stream fuzzer and the theory-scored validator
+   (``repro_torch.fed.fuzz``, ``repro_torch.fed.validate``) on the card:
+   (a) ``run_corpus`` over FUZZ_SEEDS seeds (the reference's nightly
+   corpus) on one warm ``FuzzHarness`` with plan parity: every case's
+   exact-resume, zero-recompile, weight-sanity and plan-parity, every kill
+   resumed; prints cases/s, rounds, kills, resumes and events applied;
+   (b) ``run_backend_matrix`` over FUZZ_BACKENDS plus "sharded" over a
+   one-rank NCCL group (a ``file://`` init under ``build/``, destroyed when
+   the phase ends) for FUZZ_MATRIX_SEEDS seeds: records exact on every
+   backend, params within the reference's gates; prints max_param_err and,
+   over the same cases, how many final param elements of banked,
+   client_sequential and sharded differ from client_parallel and of
+   quantized_sequential from quantized (banked must differ in none);
+   (c) ``run_chaos_corpus`` over FUZZ_CHAOS_SEEDS seeds: at least one
+   recovery, every recovered run bit-exact to its fault-free run; prints
+   recoveries, merged events, MTTR mean and max and each case's faults;
+   (d) ``validate_corpus`` over VALIDATE_SEEDS seeds on f32 and
+   VALIDATE_INT8_SEEDS on int8: the Theorem 3.1 envelope and Table 1's
+   ordering on every seed, weighted_agg (int8: weighted_agg_quant) once
+   and masked_sgd E times a round; prints the max margin and each seed's
+   tails; then the two mutation smokes, each of which must be caught:
+   scheme C served B's coefficients (the engine's ``scheme_coefficients``
+   patched) as scheme-ordering, and the ``"int8:levels=1"`` wire;
+   (e) each backend's launches over one uninterrupted case: weighted_agg
+   (int8: weighted_agg_quant; sharded: weighted_agg_sharded) once and
+   masked_sgd 2 leaves x E a round on parallel legs, masked_sgd capacity x
+   2 x E a round and no reduction kernel on sequential legs;
+   (f) FUZZ_CPU_SEED's case on the card and on the CPU: equal round
+   records (s bit for bit) and the first span's params within PARAM_TOL;
+15. times each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (weighted_agg_quant from
    device memory and, beside it, from L2; for weighted_agg_quant,
    ssd_intra_chunk and the sharded kernels, where no single call does, a
@@ -511,6 +541,20 @@ SERVICE_EVENTS_PER_S = "1000000"
 # after a span (4), so the phase pays that grace once
 SERVICE_CHURN_CHAOS = "7"
 SERVICE_METRICS_CHAOS = "4"
+# the event-stream fuzzer and the theory-scored validator: the reference's
+# nightly corpus (benchmarks/fuzz_bench.py:83) with plan parity, the backend
+# matrix, fuzzed supervised chaos and the validator's corpora, each over
+# these seeds; the backends of the matrix (plus "sharded" over a one-rank
+# NCCL group); the fuzz harness's PARAM_TOL-held first span, card against
+# CPU, on FUZZ_CPU_SEED's case
+FUZZ_SEEDS = 64
+FUZZ_MATRIX_SEEDS = 8
+FUZZ_CHAOS_SEEDS = 6
+VALIDATE_SEEDS = 4
+VALIDATE_INT8_SEEDS = 1
+FUZZ_BACKENDS = ("client_parallel", "client_sequential", "quantized",
+                 "quantized_sequential", "banked")
+FUZZ_CPU_SEED = 3
 # the reference's quickstart (examples/quickstart.py): SYNTHETIC(1, 1), 20
 # clients, logreg, scheme C, E 5, B 20, eta0 1.0, 50 rounds, eval every 5;
 # its accuracy after 50 rounds as the verify notes give it, and how far the
@@ -3597,7 +3641,258 @@ def service_path(dev, card: str, n_leaves: int) -> None:
     log(f"  service phase: {time.perf_counter() - t0:.1f} s")
 
 
-# -- 14. timing ---------------------------------------------------------------
+# -- 14. the event-stream fuzzer and the theory-scored validator --------------
+def fuzz_corpus(dev):
+    """Phase 14 (a): run_corpus over FUZZ_SEEDS seeds with plan parity, on
+    a harness on the card.  Returns the harness."""
+    from repro_torch.fed import FuzzHarness, run_corpus
+    t0 = time.perf_counter()
+    harness = FuzzHarness(device=dev)
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agg = run_corpus(range(FUZZ_SEEDS), harness=harness)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if agg["cases"] != FUZZ_SEEDS or not all(
+            r["plan_parity"] for r in agg["per_case"]):
+        raise RuntimeError(f"the corpus ran {agg['cases']} cases, plan "
+                           f"parity on {sum(r['plan_parity'] for r in agg['per_case'])}")
+    if agg["kills"] == 0 or agg["resumes"] != agg["kills"]:
+        raise RuntimeError(f"kills {agg['kills']}, resumes {agg['resumes']}")
+    log(f"  (a) run_corpus: {agg['cases']} cases, {agg['rounds']} rounds, "
+        f"every invariant (exact-resume, zero-recompile, weight-sanity, "
+        f"plan-parity) on each, in {secs:.3f} s: "
+        f"{agg['cases'] / secs:.3f} cases/s, "
+        f"{3 * agg['rounds'] / secs:.1f} rounds/s over the 3 runs a case; "
+        f"kills {agg['kills']}, resumes {agg['resumes']}, events applied "
+        f"{agg['events_applied']}; harness warm-up {warm:.3f} s")
+    return harness
+
+
+def fuzz_chaos(harness) -> None:
+    """Phase 14 (c): run_chaos_corpus over FUZZ_CHAOS_SEEDS seeds."""
+    from repro_torch.fed import run_chaos_corpus
+    t0 = time.perf_counter()
+    agg = run_chaos_corpus(range(FUZZ_CHAOS_SEEDS), harness=harness)
+    secs = time.perf_counter() - t0
+    if agg["recoveries"] < 1 or agg["cases"] != FUZZ_CHAOS_SEEDS:
+        raise RuntimeError(f"the chaos corpus recovered "
+                           f"{agg['recoveries']} times in {agg['cases']} "
+                           f"cases")
+    log(f"  (c) run_chaos_corpus: {agg['cases']} cases, {agg['rounds']} "
+        f"rounds, {agg['events']} events, {agg['recoveries']} recoveries "
+        f"onto the harness's engine, every run bit-exact to its fault-free "
+        f"run; events merged {agg['events_merged']}; MTTR mean "
+        f"{agg['mttr_mean_s']:.4f} s, max {agg['mttr_max_s']:.4f} s; "
+        f"{secs:.3f} s")
+    for r in agg["per_case"]:
+        log(f"      seed {r['seed']}: recoveries {r['recoveries']}, mttr "
+            f"{[round(m, 4) for m in r['mttr_s']]}, fired {r['fired']}")
+
+
+def fuzz_against_cpu(harness) -> None:
+    """Phase 14 (f): one case on the card and on the CPU: equal records (s
+    bit for bit: the device draw), the first span's params within
+    PARAM_TOL."""
+    from repro_torch.fed import FuzzHarness, generate_case
+    from repro_torch.fed.fuzz import _execute, _numpy_params
+    cpu = FuzzHarness(device="cpu")
+    case = generate_case(FUZZ_CPU_SEED)
+    card_run = _execute(harness, case, mode="device", honor_kills=False)
+    cpu_run = _execute(cpu, case, mode="device", honor_kills=False)
+    for a, b in zip(card_run["history"], cpu_run["history"], strict=True):
+        if not same_records(a, b):
+            raise RuntimeError(f"seed {FUZZ_CPU_SEED}: round {a.tau} on the "
+                               f"card {a} != the CPU's {b}")
+    first = []
+    for h in (harness, cpu):
+        sch = h.new_scheduler("device", case_seed=case.seed)
+        for op in h.materialize(case):
+            if op[0] == "push":
+                sch.push(op[1])
+            elif op[0] == "run":
+                sch.run(op[1], eval_every=NO_EVAL)
+                n_first = op[1]
+                break
+        first.append(_numpy_params(sch.params))
+    dist_tol = max(float(np.max(np.abs(first[0][k] - v)
+                                / (PARAM_TOL["atol"] + PARAM_TOL["rtol"]
+                                   * np.abs(v))))
+                   for k, v in first[1].items())
+    log(f"  (f) seed {FUZZ_CPU_SEED} on the card against the CPU: "
+        f"{len(card_run['history'])} round records equal (s bit for bit), "
+        f"events applied {card_run['state'].events_applied} both; the "
+        f"first span ({n_first} rounds) {dist_tol:.4f} PARAM_TOLs apart")
+    if dist_tol > 1.0:
+        raise RuntimeError(f"the first span's params lie {dist_tol:.3f} "
+                           f"PARAM_TOLs from the CPU's")
+
+
+def fuzz_leg_launches(pool, case) -> None:
+    """Phase 14 (e): each backend's launches per round over one
+    uninterrupted run of ``case``: weighted_agg once per client-parallel
+    f32 round, weighted_agg_quant once per parallel int8 round,
+    weighted_agg_sharded once per sharded round, masked_sgd 2 leaves x E a
+    round on parallel legs; on sequential legs no reduction kernel and
+    masked_sgd capacity x 2 leaves x E a round (one row per slot)."""
+    from repro_torch.fed.fuzz import _execute
+    from repro_torch.kernels import ops
+    R = case.total_rounds
+    for name, h in pool.items():
+        E, C = h.E, h.capacity
+        ops.reset_launches()
+        _execute(h, case, mode="device", honor_kills=False)
+        torch.cuda.synchronize()
+        got = dict(ops.launches)
+        if h.engine_mode == "client_sequential":
+            want = expected_launches(masked_sgd=C * 2 * E * R)
+        else:
+            reduction = ("weighted_agg_sharded" if name == "sharded" else
+                         "weighted_agg_quant" if h.engine.compression.quantized
+                         else "weighted_agg")
+            want = expected_launches(masked_sgd=2 * E * R,
+                                     **{reduction: R})
+        log(f"  (e) {name}: launches over {R} rounds "
+            f"{ {k: v for k, v in got.items() if v} }, a round "
+            f"{ {k: v / R for k, v in got.items() if v} }")
+        if got != want:
+            raise RuntimeError(f"{name}: launches {got} != expected {want}")
+
+
+def fuzz_backends(dev) -> None:
+    """Phase 14 (b) and (e): run_backend_matrix over FUZZ_BACKENDS plus
+    "sharded" over a one-rank NCCL group (a file:// init under build/, as
+    step 7's), for FUZZ_MATRIX_SEEDS seeds; banked against client_parallel
+    and the sharded leg against client_parallel element by element; then
+    each leg's launches.  The group is destroyed when the phase ends."""
+    import torch.distributed as dist
+    from repro_torch.fed import (generate_case, make_backend_pool,
+                                 make_fed_sharding, run_backend_matrix)
+    from repro_torch.fed.fuzz import _execute
+    init = ROOT / "build" / "fuzz_pool.pg"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    try:
+        t0 = time.perf_counter()
+        pool = make_backend_pool(FUZZ_BACKENDS + ("sharded",),
+                                 sharding=make_fed_sharding(), device=dev)
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        agg = run_backend_matrix(range(FUZZ_MATRIX_SEEDS), pool=pool)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"  (b) run_backend_matrix: {agg['cases']} cases, "
+            f"{agg['rounds']} rounds on each of {agg['backends']}: records "
+            f"exact, max_param_err {agg['max_param_err']:.6g} (int8 legs "
+            f"against f32 under QUANT_VS_F32, the others under 5e-4); "
+            f"{secs:.3f} s, pool warm-up {warm:.3f} s")
+        pairs = (("banked", "client_parallel"),
+                 ("quantized_sequential", "quantized"),
+                 ("client_sequential", "client_parallel"),
+                 ("sharded", "client_parallel"))
+        differ = {pair: [0, 0.0] for pair in pairs}
+        for seed in range(FUZZ_MATRIX_SEEDS):
+            case = generate_case(seed)
+            runs = {name: _execute(pool[name], case, mode="device",
+                                   honor_kills=False)
+                    for name in {n for pair in pairs for n in pair}}
+            for a, b in pairs:
+                for k, v in runs[b]["params"].items():
+                    d = np.abs(runs[a]["params"][k] - v)
+                    differ[a, b][0] += int((d != 0).sum())
+                    differ[a, b][1] = max(differ[a, b][1], float(d.max()))
+        n = sum(v.size for v in runs["client_parallel"]["params"].values())
+        for (a, b), (count, worst) in differ.items():
+            log(f"      {a} against {b}: {count} of "
+                f"{n * FUZZ_MATRIX_SEEDS} final param elements differ over "
+                f"{FUZZ_MATRIX_SEEDS} cases (max {worst:.3g})")
+        if differ["banked", "client_parallel"][0]:
+            raise RuntimeError("banked is not client_parallel bit for bit")
+        fuzz_leg_launches(pool, generate_case(0))
+    finally:
+        dist.destroy_process_group()
+
+
+def fuzz_validate(dev) -> None:
+    """Phase 14 (d): validate_corpus over VALIDATE_SEEDS seeds on f32 and
+    VALIDATE_INT8_SEEDS on int8 on the card, with their launches; the two
+    mutation smokes: scheme C collapsed onto B's coefficients (the engine's
+    scheme_coefficients patched) trips scheme-ordering, and the
+    "int8:levels=1" wire trips the validator."""
+    import repro_torch.fed.engine as engine_mod
+    from repro_torch.fed import (InvariantViolation, QuadraticRunner,
+                                 validate_corpus)
+    from repro_torch.kernels import ops
+    for wire, seeds in ((None, VALIDATE_SEEDS),
+                        ("int8", VALIDATE_INT8_SEEDS)):
+        runner = QuadraticRunner(compression=wire, device=dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        agg = validate_corpus(range(seeds), runner=runner)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        R = agg["rounds"]
+        want = expected_launches(
+            masked_sgd=R * runner.E,
+            **{"weighted_agg_quant" if wire else "weighted_agg": R})
+        got = dict(ops.launches)
+        log(f"  (d) validate_corpus {wire or 'f32'}: {agg['cases']} seeds x "
+            f"3 schemes, {R} rounds in {secs:.3f} s, max margin "
+            f"{agg['max_margin']:.6g} (of slack 1.0), launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        for r in agg["per_case"]:
+            log(f"      seed {r['seed']}: events {r['n_events']}, tails "
+                f"C {r['tails']['C']:.6g} A {r['tails']['A']:.6g} B "
+                f"{r['tails']['B']:.6g}, C/A {r['tails']['C'] / r['tails']['A']:.4f}"
+                f" C/B {r['tails']['C'] / r['tails']['B']:.4f} (limit 0.6)")
+        if got != want:
+            raise RuntimeError(f"validate launches {got} != {want}")
+    orig = engine_mod.scheme_coefficients
+
+    def collapsed(scheme, p, s, E):
+        return orig("B" if scheme == "C" else scheme, p, s, E)
+
+    caught = {}
+    engine_mod.scheme_coefficients = collapsed
+    try:
+        validate_corpus(range(1), runner=QuadraticRunner(device=dev))
+    except InvariantViolation as e:
+        caught["collapsed"] = e.invariant
+    finally:
+        engine_mod.scheme_coefficients = orig
+    try:
+        validate_corpus(range(1), rounds=48, compression="int8:levels=1",
+                        device=dev)
+    except InvariantViolation as e:
+        caught["levels=1"] = e.invariant
+    log(f"  (d) mutation smokes: scheme C collapsed onto B caught as "
+        f"{caught.get('collapsed')}; int8:levels=1 caught as "
+        f"{caught.get('levels=1')}")
+    if caught.get("collapsed") != "scheme-ordering" or \
+            "levels=1" not in caught:
+        raise RuntimeError(f"a validator mutation was not caught: {caught}")
+
+
+def fuzz_path(dev, card: str) -> None:
+    """Phase 14: the event-stream fuzzer and the theory-scored validator
+    on the card."""
+    t0 = time.perf_counter()
+    log(f"fuzzer and validator: run_corpus ({FUZZ_SEEDS} seeds), the "
+        f"backend matrix ({FUZZ_MATRIX_SEEDS} seeds), fuzzed chaos "
+        f"({FUZZ_CHAOS_SEEDS} seeds), validate_corpus ({VALIDATE_SEEDS} "
+        f"f32, {VALIDATE_INT8_SEEDS} int8); on {card}")
+    harness = fuzz_corpus(dev)
+    fuzz_chaos(harness)
+    fuzz_against_cpu(harness)
+    del harness
+    fuzz_backends(dev)
+    fuzz_validate(dev)
+    log(f"  fuzz phase: {time.perf_counter() - t0:.1f} s")
+
+
+# -- 15. timing ---------------------------------------------------------------
 def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     """Mean time of fn on the card's timeline, between CUDA events around n
     back-to-back calls.  The card first spins for `spin` cycles (a few tens
@@ -4107,6 +4402,7 @@ def main() -> None:
     uncut = scenario_path(dev, card)
     bank_path(dev, card, len(leaves), uncut)
     service_path(dev, card, len(leaves))
+    fuzz_path(dev, card)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)

@@ -3,8 +3,9 @@
 Counterpart of ``repro/fed/stream.py``'s ``StreamScheduler``, with its
 checkpoint and resume, its tiered client bank and cohort prefetch
 (``fed/bank.py``), its telemetry (``repro_torch.obs``) and its fault
-hook (``injector=``, a ``fed/faults.FaultPlan``); the span log comes with
-``fed/fuzz.py`` (ROADMAP item 5).  At each span start the
+hook (``injector=``, a ``fed/faults.FaultPlan``) and its span log
+(``log_spans=True``, which ``fed/fuzz.py`` and ``fed/validate.py`` read).
+At each span start the
 scheduler pops every queued event with tau <= now, applies it to the
 FedState and executes the slot actions it returns against the
 RoundEngine (consecutive admits land as one burst; evicts and trace
@@ -67,9 +68,6 @@ from repro_torch.obs.telemetry import resolve as resolve_telemetry
 # chunk_size from every checkpoint's config
 REFERENCE_CHUNK_SIZE = 16
 
-# the reference's scheduler arguments the port does not have yet, with the
-# ROADMAP item that brings each
-UNPORTED = {"log_spans": "ROADMAP item 5, fed/fuzz.py"}
 # the reference's jax-only arguments: Pallas interpret mode and buffer
 # donation have no meaning in the port (a CPU tensor takes a kernel's plain
 # version; torch frees what it no longer references)
@@ -77,15 +75,12 @@ JAX_ONLY = ("interpret", "donate")
 
 
 def refuse_unported(**given) -> None:
-    """Raise ValueError for any of the reference's scheduler arguments
-    that the port has not ported (UNPORTED) or that only jax has
-    (JAX_ONLY), unless it is at its null default (None or False)."""
+    """Raise ValueError for any of the reference's jax-only scheduler
+    arguments (JAX_ONLY) unless it is at its null default (None or
+    False)."""
     for name, value in given.items():
         if value is None or value is False:
             continue
-        if name in UNPORTED:
-            raise ValueError(f"{name}={value!r}: not ported yet "
-                             f"({UNPORTED[name]}); pass None")
         raise ValueError(f"{name}={value!r} is a jax-only argument of the "
                          f"reference; the port accepts only None")
 
@@ -127,9 +122,11 @@ class StreamScheduler:
     iteration of ``run``, where a crash leaves the scheduler torn as the
     reference's (the spans already run recorded, ``next_tau`` stale), and
     is handed to ``save``'s checkpoint writes (``"ckpt_save"``,
-    ``"ckpt_written"``).  ``log_spans`` (not ported yet; ``span_log`` stays
-    None) and ``interpret`` and ``donate`` (jax's) are accepted only at
-    their null defaults: anything else raises ValueError
+    ``"ckpt_written"``).  ``log_spans=True`` keeps ``span_log``, a list
+    of ``(tau, p, active, lr_shift_tau)`` (numpy copies) appended each
+    time the span arguments are recomputed, as the reference's; without
+    it ``span_log`` is None.  ``interpret`` and ``donate`` (jax's) are
+    accepted only at their null defaults: anything else raises ValueError
     (``refuse_unported``).
     """
 
@@ -162,13 +159,13 @@ class StreamScheduler:
                  device=None, model_kind: Optional[str] = None):
         if mode not in ("device", "plan"):
             raise ValueError(f"mode must be device|plan, got {mode!r}")
-        refuse_unported(log_spans=log_spans, interpret=interpret,
-                        donate=donate)
+        refuse_unported(interpret=interpret, donate=donate)
         self.mode = mode
         self.injector = injector
-        # the reference's span log (log_spans=True, fed/fuzz.py): the
-        # service reads whether it is on when it restores a scheduler
-        self.span_log: Optional[List[tuple]] = None
+        # the span-argument log the fuzzer's weight and LR checks and the
+        # validator's per-round weights read; the service keeps it on
+        # across a recovery
+        self.span_log: Optional[List[tuple]] = [] if log_spans else None
         # telemetry: a reused engine keeps its own, a built one shares the
         # scheduler's
         self.telemetry = resolve_telemetry(telemetry)
@@ -442,6 +439,9 @@ class StreamScheduler:
         if self._span_args is None or self._dirty:
             dev = self.engine.device
             a = self.state.span_args(tau)
+            if self.span_log is not None:
+                self.span_log.append((tau, a["p"].copy(), a["active"].copy(),
+                                      a["lr_shift_tau"]))
             self._span_args = dict(
                 p=torch.as_tensor(a["p"], device=dev),
                 active=torch.as_tensor(a["active"], device=dev),
@@ -629,8 +629,8 @@ class StreamScheduler:
         Only the callables (``loss_fn`` or ``task``, ``eval_fn`` or
         ``evaluate``) are the caller's to supply.  ``model_kind`` (the
         checkpoint's own, else None) fixes the layout the params are read
-        in; ``injector`` goes to the restored scheduler (``log_spans``, not
-        ported yet, only at False); ``overrides`` replace entries of the
+        in; ``injector`` and ``log_spans`` go to the restored scheduler;
+        ``overrides`` replace entries of the
         persisted geometry.  A reused ``engine`` must be driven by no other
         thread (the service's supervisor reuses one only after joining
         the worker that drove it).  The
@@ -640,7 +640,6 @@ class StreamScheduler:
 
         Raises ``checkpoint.CorruptCheckpointError`` when the checkpoint
         fails its checksum."""
-        refuse_unported(log_spans=log_spans)
         params, state_dict, history, config, _extra = \
             load_fed_checkpoint(path, telemetry=telemetry)
         cfg = dict(config)
@@ -690,7 +689,8 @@ class StreamScheduler:
                    engine=engine, state=state, mode=cfg["mode"],
                    eval_fn=eval_fn, evaluate=evaluate,
                    history=history_from_dict(history), telemetry=telemetry,
-                   injector=injector, bank=cfg.get("bank", False),
+                   injector=injector, log_spans=log_spans,
+                   bank=cfg.get("bank", False),
                    prefetch=cfg.get("prefetch", False))
 
 

@@ -904,8 +904,8 @@ def test_restore_of_a_flipped_byte_raises_corrupt(tmp_path):
 
 def test_restore_hands_the_injector_to_the_scheduler(tmp_path):
     """restore(injector=) gives the restored scheduler that injector (it is
-    not swallowed into the geometry's overrides), and log_spans is refused
-    by name until the span log is ported."""
+    not swallowed into the geometry's overrides), and restore(log_spans=True)
+    a scheduler that logs its span arguments."""
     sch = port_scheduler("plan")
     sch.run(2, eval_every=EVAL_EVERY)
     sch.save(str(tmp_path / "c"))
@@ -918,10 +918,13 @@ def test_restore_hands_the_injector_to_the_scheduler(tmp_path):
     with pytest.raises(port_fed.InjectedFault):
         res.run(2, eval_every=EVAL_EVERY)    # the plan fires in run()
     assert plan.fired == [("sched_span", 0, "crash")]
-    with pytest.raises(ValueError, match="log_spans"):
-        StreamScheduler.restore(str(tmp_path / "c"), device="cpu",
-                                loss_fn=make_loss_fn(SYNTHETIC_LR),
-                                log_spans=True)
+    logged = StreamScheduler.restore(str(tmp_path / "c"), device="cpu",
+                                     loss_fn=make_loss_fn(SYNTHETIC_LR),
+                                     log_spans=True)
+    assert logged.span_log == [] and "log_spans" not in \
+        logged.engine_config()
+    logged.run(2, eval_every=EVAL_EVERY)
+    assert [t for t, _, _, _ in logged.span_log][0] == 2
 
 
 def test_scheduler_save_fires_the_injectors_sites(tmp_path):

@@ -700,3 +700,34 @@ def test_service_worker_enters_the_engines_device(card):
     with FederationService(sch, span_rounds=2, max_rounds=4) as svc:
         assert svc.wait_rounds(4, timeout=120)
     assert seen == [dev.index, dev.index]
+
+
+def test_fuzz_case_on_the_card_with_every_invariant(card):
+    """One fuzz case on the card with every invariant (exact resume, zero
+    rebuilds, weight sanity, plan parity), launching the round's kernels
+    (weighted_agg once and masked_sgd 2 leaves x E a round of the
+    uninterrupted run), and its records equal to the same case on the CPU
+    (s bit for bit: one draw, one s-law table)."""
+    from repro_torch.fed import FuzzHarness, generate_case, run_fuzz_case
+    from repro_torch.fed.fuzz import _execute, _fn_signature
+    seed = 0                # two kills, 19 rounds
+    on_card = FuzzHarness(device=card)
+    assert {"weighted_agg", "weighted_agg_quant", "masked_sgd"} <= \
+        set(_fn_signature(on_card.engine)["kernels"])
+    stats = run_fuzz_case(on_card, seed)
+    assert stats["plan_parity"] and stats["resumes"] == stats["kills"] > 0
+    case = generate_case(seed)
+    ops.reset_launches()
+    card_run = _execute(on_card, case, mode="device", honor_kills=False)
+    torch.cuda.synchronize()
+    R = case.total_rounds
+    assert ops.launches["weighted_agg"] == R
+    assert ops.launches["masked_sgd"] == 2 * on_card.E * R
+    cpu_run = _execute(FuzzHarness(device="cpu"), case, mode="device",
+                       honor_kills=False)
+    assert len(card_run["history"]) == len(cpu_run["history"]) == R
+    for a, b in zip(card_run["history"], cpu_run["history"]):
+        assert (a.tau, a.eta, a.n_active, a.event) == \
+            (b.tau, b.eta, b.n_active, b.event)
+        assert (a.s == b.s).all()
+    assert card_run["state"].slot_of == cpu_run["state"].slot_of

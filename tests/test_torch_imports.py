@@ -34,7 +34,8 @@ for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
              "repro_torch.obs.metrics", "repro_torch.obs.tracing",
              "repro_torch.obs.telemetry", "repro_torch.obs.fedmetrics",
              "repro_torch.fed.faults", "repro_torch.fed.service",
-             "repro_torch.launch.fed_serve", "repro_torch.launch.fed_top"):
+             "repro_torch.launch.fed_serve", "repro_torch.launch.fed_top",
+             "repro_torch.fed.fuzz", "repro_torch.fed.validate"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

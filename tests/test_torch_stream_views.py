@@ -192,8 +192,7 @@ def test_views_read_the_state():
     assert sorted(sch.free_slots) == [10, 11]
 
 
-REFUSED = [("log_spans", True, "item 5"), ("interpret", True, "jax-only"),
-           ("donate", True, "jax-only")]
+REFUSED = [("interpret", True, "jax-only"), ("donate", True, "jax-only")]
 
 
 @pytest.mark.parametrize("name,value,item", REFUSED,
@@ -216,29 +215,31 @@ def test_unported_arguments_are_refused(name, value, item):
                **{name: None if value is not True else False})
 
 
-ACCEPTED = ["telemetry", "bank", "prefetch"]
+ACCEPTED = ["telemetry", "bank", "prefetch", "log_spans"]
 
 
 @pytest.mark.parametrize("name", ACCEPTED)
 def test_ported_arguments_are_accepted(name):
-    """The reference's telemetry, bank and prefetch arguments are taken by
-    the scheduler and by build_scheduler, and do what they name: the
+    """The reference's telemetry, bank, prefetch and log_spans arguments
+    are taken by the scheduler and by build_scheduler (where the
+    reference's takes them: not log_spans), and do what they name: the
     scheduler and the engine it builds share the telemetry (which counts
     the spans), a bank holds every client, prefetch adds a stager that
-    serves the arrivals; the records are those of a run without them."""
+    serves the arrivals, log_spans logs one entry per recomputation of the
+    span arguments; the records are those of a run without them."""
     from repro_torch.fed.scenarios import build_scheduler
     from repro_torch.obs import Telemetry
     sc = make_scenario("staggered", n_rounds=4, spacing=2, seed=0)
     plain = build_scheduler(sc, device="cpu")
     plain.run(4, eval_every=2)
-    for sch in (_scheduler(sc, loss_fn=make_loss_fn(SYNTHETIC_LR),
-                           device="cpu", capacity=sc.capacity,
-                           max_samples=sc.max_samples, eta0=sc.eta0,
-                           **{name: Telemetry() if name == "telemetry"
-                              else True}),
-                build_scheduler(sc, device="cpu",
-                                **{name: Telemetry() if name == "telemetry"
-                                   else True})):
+    value = Telemetry() if name == "telemetry" else True
+    schedulers = [_scheduler(sc, loss_fn=make_loss_fn(SYNTHETIC_LR),
+                             device="cpu", capacity=sc.capacity,
+                             max_samples=sc.max_samples, eta0=sc.eta0,
+                             **{name: value})]
+    if name != "log_spans":
+        schedulers.append(build_scheduler(sc, device="cpu", **{name: value}))
+    for sch in schedulers:
         sch.run(4, eval_every=2)
         sch.close()
         assert [(h.tau, h.event, h.n_active) for h in sch.history] == \
@@ -248,6 +249,15 @@ def test_ported_arguments_are_accepted(name):
             assert sch.telemetry.registry.get("sched_spans_total") \
                 .labels().value > 0
             assert sch.prefetch_stats() == {}
+        elif name == "log_spans":
+            assert plain.span_log is None
+            # one entry at tau 0, one per boundary that applied events
+            taus = [t for t, _, _, _ in sch.span_log]
+            assert taus[0] == 0 and taus == sorted(set(taus))
+            assert taus[1:] == [h.tau for h in sch.history if h.event]
+            for tau, p, active, lr_shift in sch.span_log:
+                assert p.shape == active.shape == (sc.capacity,)
+                assert lr_shift <= tau
         else:
             assert len(sch.bank) == len(sch.clients)
             assert (sch._stager is not None) is (name == "prefetch")
