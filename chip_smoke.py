@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
 round in plan and device mode, the compressed federated round, the client-sharded round, the
 paper's experiments with the client-sequential round, LM serving,
-Mamba2 SSD serving, the streamed federation's checkpoint and resume, the
+Mamba2 SSD serving, the LM zoo's dense, hybrid and MLA + MoE serving, the
+streamed federation's checkpoint and resume, the
 streaming scenario library through its CLI, the tiered client bank
 with its cohort prefetch and the telemetry, the live federation
 service with its fault injection and supervised recovery, and the
@@ -39,6 +40,11 @@ it, and nothing of JAX or of the JAX package.  In order it
    overflowing exp (no NaN or inf), in bf16 also against the function in
    f32 within its rounding bound (at the serving cell count on three
    draws), both of its planted faults outside ops.TOLERANCE there;
+   flash_attention also at head dim 256 (gemma-7b's prefill shape, bf16
+   and f32, causal and not, ragged S; the planted fault outside the bf16
+   bound at gemma's shape) and ssd_intra_chunk also at hymba-1.5b's 50
+   heads (its serving cells (64, 50), N 16, and cut, ragged head blocks,
+   SSD_HYMBA; the head fault outside ops.TOLERANCE at each);
 4. drives the federated round, ``FederatedTrainer(engine="plan")`` on the
    EMNIST CNN at full width with 62 clients, through one late arrival and
    one excluding departure; checks each kernel's launch count, finite eval
@@ -116,6 +122,23 @@ it, and nothing of JAX or of the JAX package.  In order it
    against the model with the intra-chunk term in f64 (LOGITS_FACTOR),
    decode steps against the full forward in f32, the reduced config on the
    card against the CPU; prefill and decode times, busy shares, memory;
+   then the LM zoo (ZOO): starcoder2-3b, gemma-7b (attn_impl="flash", head
+   dim 256), hymba-1.5b, deepseek-v2-lite-16b at full width and depth and
+   command-r-plus-104b at full width with 4 of its 64 layers
+   (attn_impl="flash"), each from seed 0 through ``serve`` (batch 4,
+   prompt 4,096, ZOO_GEN decode steps) and freed before the next: launch
+   counts per prefill (flash_attention one per layer for the flash
+   configs, ssd_intra_chunk one per layer for hymba) and none per decode
+   step, finite logits, warm prefill tokens/s, decode ms/step, busy shares
+   and memory high-water mark; the flash configs' prefill logits and the
+   chunked path's against the model with attention in f32
+   (LOGITS_FACTOR, the planted flash fault outside), hymba's in f32 with
+   the kernel and with the plain intra-chunk term against the term in f64
+   (LOGITS_FACTOR, the planted SSD fault outside); starcoder2's and
+   deepseek's against attention in f32, reported; then every new
+   architecture's reduced config in f32 on the card against the CPU
+   (deepseek-v3-671b runs only so, with a live router_bias; gemma's also
+   at head dim 256 with flash);
 10. drives checkpoint and resume of the streamed federation: a
    ``StreamScheduler`` with ``model_kind="cnn"`` over the main path's
    EMNIST federation (capacity CKPT_CAPACITY), a TraceShift, an
@@ -238,7 +261,10 @@ it, and nothing of JAX or of the JAX package.  In order it
    once for its heads as the kernel does; for flash_attention,
    scaled_dot_product_attention, whose backend is named and each backend
    timed), and prints them, the sharded kernels' timings from step 7 among
-   them, as one ``{"kernels": [...]}`` line.  ssd_intra_chunk's bound
+   them, as one ``{"kernels": [...]}`` line; flash_attention's row also
+   carries gemma-7b's shape (head dim 256) and ssd_intra_chunk's hymba's
+   cells, under ``other_shapes``, and each the zoo paths' launches per
+   prefill under ``other_paths``.  ssd_intra_chunk's bound
    counts the group's scores once per pair, as its inputs need, and the
    per-head reckoning (the scores counted once per head) is printed
    beside it.
@@ -248,6 +274,7 @@ Any failure raises and the script exits nonzero.  The last line,
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import itertools
@@ -292,6 +319,8 @@ GEN = 32
 WARM_STEPS = 8          # decode steps timed again once warm
 # flash_attention at the serving prefill's shape: (B, H, KV, S, hd)
 FLASH_MAIN = (SERVE_BATCH, 48, 8, PROMPT_LEN, 128)
+# and at gemma-7b's, head dim 256 (the kernel's tiles of 64 keys there)
+FLASH_GEMMA = (SERVE_BATCH, 16, 16, PROMPT_LEN, 256)
 # edge shapes that take other code: (B, H, KV, S, hd, dtype, causal)
 FLASH_EDGES = [
     (2, 4, 2, 100, 128, torch.bfloat16, True),   # keys past S masked
@@ -311,6 +340,14 @@ FLASH_EDGES = [
     (1, 4, 2, 257, 128, torch.bfloat16, False),
     (1, 8, 8, 300, 128, torch.bfloat16, True),
     (1, 48, 8, 1000, 128, torch.bfloat16, False),
+    # head dim 256: gemma's prefill shape in f32, causal; ragged S causal
+    # and not, in both types; one key past a KV tile of 64; GQA
+    (*FLASH_GEMMA, torch.float32, True),
+    (1, 16, 16, 1000, 256, torch.bfloat16, False),
+    (1, 16, 16, 1000, 256, torch.float32, False),
+    (2, 4, 2, 65, 256, torch.bfloat16, True),
+    (1, 8, 2, 300, 256, torch.bfloat16, True),
+    (1, 8, 2, 300, 256, torch.float32, True),
 ]
 # flash_attention in bf16 against the same attention computed in f32
 # (flash_attention_plain on f32 copies of q, k and v).  The kernel and its
@@ -364,6 +401,18 @@ SSD_EDGES = [
     (96, 128, 64, 64, torch.bfloat16),
     (SSD_MAIN[0] * SSD_HEADS, SSD_Q, SSD_N, SSD_P, torch.bfloat16),
 ]
+# hymba-1.5b's intra-chunk term, (G, heads, Q, N, P, dtype): its serving
+# prefill's cells (64, 50), where one CTA takes all 50 heads, and smaller
+# prefills' cells, where heads_per_cta cuts the 50 heads into blocks of a
+# multiple of the kernel's 3 consumer warpgroups, the last block ragged: 4
+# prompts of 64 tokens (blocks of 3), one of 4,096 (blocks of 18), four of
+# 256 (blocks of 6)
+SSD_HYMBA_HEADS = 50
+SSD_HYMBA = [(SERVE_BATCH * PROMPT_LEN // SSD_Q, SSD_HYMBA_HEADS, SSD_Q, 16,
+              SSD_P, torch.float32),
+             (4, SSD_HYMBA_HEADS, 64, 16, SSD_P, torch.float32),
+             (16, SSD_HYMBA_HEADS, SSD_Q, 16, SSD_P, torch.float32),
+             (4, SSD_HYMBA_HEADS, SSD_Q, 16, SSD_P, torch.float32)]
 # the last edge shape (bf16 at the serving cell count) is checked on this
 # many draws of its inputs, the generator running on between them, so that
 # the rounding bound's reading there rests on more than one draw
@@ -414,6 +463,20 @@ SSD_HEAD_FAULT = ("const int h = h0 + h1 + g;", "const int h = h0;")
 # kernel's may be at most LOGITS_FACTOR times the plain version's, in max
 # abs error and in relative norm, and the planted fault must fail that.
 SSM_DECODE_STEPS = 8    # decode steps held against a full forward (f32)
+# the LM zoo's serving phases, after mamba2's: (arch, attn_impl, layers kept
+# or None for all), each at full width from seed 0, batch SERVE_BATCH,
+# prompt PROMPT_LEN, then ZOO_GEN decode steps; command-r-plus-104b (208 GB
+# in bf16) keeps 4 of its 64 layers
+ZOO = [("starcoder2-3b", "chunked", None),
+       ("gemma-7b", "flash", None),
+       ("hymba-1.5b", "chunked", None),
+       ("deepseek-v2-lite-16b", "chunked", None),
+       ("command-r-plus-104b", "flash", 4)]
+ZOO_GEN = GEN
+# the reduced configs run on the card against the CPU (deepseek-v3-671b,
+# 1.34 TB in bf16, runs only so)
+ZOO_REDUCED = ["starcoder2-3b", "gemma-7b", "command-r-plus-104b",
+               "hymba-1.5b", "deepseek-v2-lite-16b", "deepseek-v3-671b"]
 # the decode steps against the full forward in f32 (tests/test_decode.py's
 # check at the reference's tolerance), the same weights upcast to f32
 DECODE_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -745,8 +808,11 @@ def check_flash_attention(dev, planted) -> float:
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = 0.0
-    main = (*FLASH_MAIN, torch.bfloat16, True)
-    for B, H, KV, S, hd, dtype, causal in [main] + FLASH_EDGES:
+    # the serving shapes, nemotron's and gemma's, where the planted fault
+    # must fail both bounds
+    mains = [(*FLASH_MAIN, torch.bfloat16, True),
+             (*FLASH_GEMMA, torch.bfloat16, True)]
+    for B, H, KV, S, hd, dtype, causal in mains + FLASH_EDGES:
         q, k, v = _qkv(dev, gen, B, H, KV, S, hd, dtype)
         got = ops.flash_attention(q, k, v, causal=causal)
         want = fa.flash_attention_plain(q, k, v, causal)
@@ -768,7 +834,7 @@ def check_flash_attention(dev, planted) -> float:
             if x_got > BF16_SLACK:
                 raise RuntimeError("flash_attention is off its bf16 bound "
                                    "against attention in f32")
-            if (B, H, KV, S, hd, dtype, causal) == main:
+            if (B, H, KV, S, hd, dtype, causal) in mains:
                 bad = fa.launch(q, k, v, causal, lib=planted)
                 x_bad = excess(bad)
                 tol_ok = torch.allclose(bad.float(), want.float(), **tol)
@@ -961,9 +1027,13 @@ def check_ssd_intra_chunk(dev, planted, planted_head) -> float:
     serving shape.  Returns the serving shape's max abs error."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import build
     gen = torch.Generator(device=dev).manual_seed(9)
     main_err = None
-    cases = [SSD_MAIN] + [(g, 0, *rest) for g, *rest in SSD_EDGES]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_wg = build.load("ssd_intra_chunk", sc.SIGNATURES) \
+        .ssd_intra_chunk_f32_warpgroups(SSD_P)
+    cases = [SSD_MAIN] + SSD_HYMBA + [(g, 0, *rest) for g, *rest in SSD_EDGES]
     cases += [cases[-1]] * (SSD_BF16_DRAWS - 1)
     for G, heads, Q, N, P, dtype in cases:
         cum, C, B, xdt = ssd_inputs(dev, gen, G, Q, N, P, dtype, heads)
@@ -1027,13 +1097,18 @@ def check_ssd_intra_chunk(dev, planted, planted_head) -> float:
                                    "fault")
         if (G, heads, Q, N, P, dtype) == SSD_MAIN:
             main_err = err
+        if heads:
+            per_cta = sc.heads_per_cta(G, heads, Q, sc.group_shared(C, B),
+                                       n_sm, n_wg)
             bad_head = sc.launch(cum, C, B, xdt, lib=planted_head)
-            log(f"    planted fault with every head of a CTA staged from "
+            log(f"    {per_cta} heads per CTA ({-(-heads // per_cta)} blocks, "
+                f"the last of {heads - (-(-heads // per_cta) - 1) * per_cta}); "
+                f"planted fault with every head of a CTA staged from "
                 f"its first head: {max_abs_err(bad_head, want):.3e}; "
                 f"the first key tile skipped: {max_abs_err(bad, want):.3e}")
             if torch.allclose(bad_head, want, **tol):
-                raise RuntimeError("ops.TOLERANCE does not see the planted "
-                                   "head fault at the serving shape")
+                raise RuntimeError(f"ops.TOLERANCE does not see the planted "
+                                   f"head fault at cells ({G}, {heads})")
             del bad_head
         del cum, C, B, xdt, got, want, bad
         torch.cuda.empty_cache()
@@ -1126,11 +1201,12 @@ def compare_with_plain(card, plain) -> float:
     return worst
 
 
-def profile_card(label: str, fn, baseline=None) -> dict:
+def profile_card(label: str, fn, baseline=None, stats=None) -> dict:
     """Kernel time by name over one call of fn, and the card's busy share:
     the union of kernel intervals over the host's wall time.  Returns
     {name: (us, launches)}; with a ``baseline`` of that form it also prints
-    each kernel whose time differs from the baseline's by 50 us or more."""
+    each kernel whose time differs from the baseline's by 50 us or more.
+    A ``stats`` dict receives the busy share and the wall ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1157,6 +1233,8 @@ def profile_card(label: str, fn, baseline=None) -> dict:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     total = sum(t for t, _ in by_name.values())
+    if stats is not None:
+        stats.update(busy=busy / wall_us, wall_ms=wall_us / 1e3)
     log(f"  profile of {label}: wall {wall_us / 1e3:.3f} ms under "
         f"the profiler, kernels {total / 1e3:.3f} ms summed, "
         f"{busy / 1e3:.3f} ms busy ({100 * busy / wall_us:.1f}% of wall)")
@@ -2576,6 +2654,297 @@ def ssm_serve_path(dev, planted):
     return launches
 
 
+# -- 9c. the LM zoo: dense, hybrid and MLA + MoE serving ----------------------
+@contextlib.contextmanager
+def substituted(attend=None, flash=None, intra=None):
+    """A context in which the models compute their chunked attention
+    (``attention.causal_attention``, which MLA's prefill also calls), their
+    flash attention (``ops.flash_attention``) or their SSD intra-chunk term
+    (``ops.ssd_intra_chunk``) with the functions given: the same model with
+    one piece computed another way, for the logit comparisons."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    with contextlib.ExitStack() as stack:
+        for target, name, fn in ((attention, "causal_attention", attend),
+                                 (ops, "flash_attention", flash),
+                                 (ops, "ssd_intra_chunk", intra)):
+            if fn is not None:
+                stack.enter_context(mock.patch.object(target, name, fn))
+        yield
+
+
+def zoo_logits(params, cfg, tokens, **subs):
+    """The last position's logits of a forward pass of the prompts (no
+    cache), with ``substituted(**subs)``."""
+    from repro_torch.models import transformer
+    with substituted(**subs):
+        h, _, _ = transformer.model_forward(params, cfg, tokens)
+        return transformer.logits_fn(params, cfg, h[:, -1:])[..., :cfg.vocab]
+
+
+def attention_in_f32():
+    """The chunked attention on f32 copies of q, k and v, rounded back (the
+    model's own causal_attention, taken before any substitution)."""
+    from repro_torch.models.attention import causal_attention
+
+    def attend(q, k, v, **kw):
+        return causal_attention(q.float(), k.float(), v.float(),
+                                **kw).to(q.dtype)
+    return attend
+
+
+def logit_errors(lg, ref):
+    return max_abs_err(lg, ref), ((lg - ref).norm() / ref.norm()).item()
+
+
+def hold_within_factor(what: str, got, plain, bad, ref, of: str) -> None:
+    """got's error against ref may be at most LOGITS_FACTOR times plain's
+    (max abs error and relative norm), and the planted fault's must not."""
+    e_got, e_plain, e_bad = (logit_errors(x, ref) for x in (got, plain, bad))
+    bound = [LOGITS_FACTOR * e for e in e_plain]
+    log(f"  prefill logits (std {ref.std().item():.3f}) against the model "
+        f"with {of}, max_abs_err / relative norm: {what} {e_got[0]:.3e} / "
+        f"{e_got[1]:.3e}, plain {e_plain[0]:.3e} / {e_plain[1]:.3e}, planted "
+        f"fault {e_bad[0]:.3e} / {e_bad[1]:.3e}; bound {LOGITS_FACTOR:g}x "
+        f"plain's")
+
+    def within(e):
+        return e[0] <= bound[0] and e[1] <= bound[1]
+    if not within(e_got):
+        raise RuntimeError(f"the {what} prefill logits are further from "
+                           f"{of} than the plain path's error allows")
+    if within(e_bad):
+        raise RuntimeError("the logits' bound does not see the planted fault")
+
+
+def zoo_expected(cfg) -> dict:
+    """The launches of one prefill: flash_attention once per GQA layer
+    under attn_impl="flash" with no sliding window, ssd_intra_chunk once
+    per SSD layer."""
+    counts = {}
+    if cfg.attn_impl == "flash" and not cfg.sliding_window \
+            and cfg.n_heads and not cfg.use_mla:
+        counts["flash_attention"] = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        counts["ssd_intra_chunk"] = cfg.n_layers
+    return expected_launches(**counts)
+
+
+def zoo_config(arch: str, attn_impl: str, layers):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), attn_impl=attn_impl)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def zoo_serve(dev, arch: str, attn_impl: str, layers, planted: dict,
+              card: str) -> dict:
+    """One architecture at full width from seed 0 through ``serve``
+    (ZOO_GEN decode steps), ``layers`` of its layers where given: launch
+    counts per prefill and per decode step, finite logits, warm prefill
+    and decode times, busy shares, memory high-water mark; the logits
+    against the model with attention in f32 (flash against the chunked
+    path, the planted flash fault outside) or, for the hybrid, with its
+    intra-chunk term in f64 (the kernel against its plain version, the
+    planted SSD fault outside).  Returns the serving numbers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params, param_count
+    cfg = zoo_config(arch, attn_impl, layers)
+    full = zoo_config(arch, attn_impl, None)
+    B, S = SERVE_BATCH, PROMPT_LEN
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    depth = (f"{cfg.n_layers} of its {full.n_layers} layers (depth cut; "
+             f"full width)" if layers is not None else
+             f"all {cfg.n_layers} layers")
+    log(f"zoo serving: {cfg.name} ({cfg.family}) at full width, {depth}: "
+        f"{n_params:,} {cfg.dtype} params ({2 * n_params / 1e9:.2f} GB) "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s; "
+        f"attn_impl={cfg.attn_impl}, batch {B}, prompt {S}, {ZOO_GEN} "
+        f"decode steps")
+
+    ops.reset_launches()
+    out = serve(cfg, batch=B, prompt_len=S, gen=ZOO_GEN, seed=0, device=dev,
+                params=params)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = zoo_expected(cfg)
+    log(f"  launches {launches}, expected {want}")
+    if launches != want:
+        raise RuntimeError(f"{cfg.name}: launch counts {launches} != "
+                           f"expected {want}")
+    for name in ("prefill_logits", "logits"):
+        if not bool(torch.isfinite(out[name]).all()):
+            raise RuntimeError(f"non-finite {name} serving {cfg.name}")
+    if out["prefill_logits"].shape != (B, 1, cfg.vocab) or \
+            out["tokens"].shape != (B, ZOO_GEN):
+        raise RuntimeError(f"{cfg.name}: prefill logits shaped "
+                           f"{tuple(out['prefill_logits'].shape)}, tokens "
+                           f"{tuple(out['tokens'].shape)}")
+    log(f"  prefill {B}x{S}: {out['prefill_s']:.3f} s; decode {ZOO_GEN} "
+        f"steps: {out['decode_s'] / ZOO_GEN * 1e3:.3f} ms/step; memory "
+        f"high-water mark {peak / 2**30:.2f} GiB; sampled ids (seq 0) "
+        f"{out['tokens'][0, :8].tolist()}")
+    prompts, cache, tok = out["prompts"], out["cache"], out["tokens"][:, :1]
+    served = out["prefill_logits"]
+    del out
+
+    # warm: a prefill alone, then decode steps alone, with their launches
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    transformer.prefill(params, cfg, prompts, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    per_prefill = dict(ops.launches)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(WARM_STEPS):
+        transformer.decode_step(params, cfg, cache, tok, S + i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / WARM_STEPS
+    per_step = {k: n / WARM_STEPS for k, n in ops.launches.items() if n}
+    if per_prefill != want or per_step:
+        raise RuntimeError(f"{cfg.name}: a prefill launched {per_prefill} "
+                           f"(expected {want}), decode steps {per_step} "
+                           f"per step (expected none)")
+    prefill_stats, decode_stats = {}, {}
+    profile_card(f"one {cfg.name} prefill {B}x{S}",
+                 lambda: transformer.prefill(params, cfg, prompts, cache),
+                 stats=prefill_stats)
+
+    def four_steps():
+        for i in range(4):
+            transformer.decode_step(params, cfg, cache, tok, S + i)
+    profile_card(f"4 {cfg.name} decode steps", four_steps,
+                 stats=decode_stats)
+    del cache
+    torch.cuda.empty_cache()
+
+    # the logits against the same model with one piece in higher precision
+    f32 = attention_in_f32()
+    if cfg.attn_impl == "flash":
+        chunked_cfg = dataclasses.replace(cfg, attn_impl="chunked")
+        same = zoo_logits(params, cfg, prompts)
+        chunked = zoo_logits(params, chunked_cfg, prompts)
+        ref = zoo_logits(params, chunked_cfg, prompts, attend=f32)
+        bad = zoo_logits(params, cfg, prompts, flash=lambda q, k, v: fa.launch(
+            q, k, v, lib=planted["flash_attention"]))
+        if not torch.equal(same, served):
+            raise RuntimeError(f"{cfg.name}: the forward pass's logits are "
+                               f"{max_abs_err(same, served):.3e} off the "
+                               f"served prefill's")
+        hold_within_factor("flash", served, chunked, bad, ref,
+                           "attention in f32")
+    elif cfg.family == "hybrid":
+        same = zoo_logits(params, cfg, prompts)
+        if not torch.equal(same, served):
+            raise RuntimeError(f"{cfg.name}: the forward pass's logits are "
+                               f"{max_abs_err(same, served):.3e} off the "
+                               f"served prefill's")
+        e = logit_errors(served, zoo_logits(params, cfg, prompts, attend=f32))
+        log(f"  against the model with attention in f32 (reported): "
+            f"{e[0]:.3e} / {e[1]:.3e}")
+        # held in f32, the weights upcast: in bf16 the roundings of 32
+        # layers of two averaged branches already move the logits by ~2% of
+        # their norm, as much as a skipped key tile of the intra-chunk term
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = _to(params, torch.float32)
+        got = zoo_logits(p32, c32, prompts)
+        plain = zoo_logits(p32, c32, prompts, intra=sc.ssd_intra_chunk_plain)
+        ref = zoo_logits(p32, c32, prompts, intra=intra_f64)
+        bad = zoo_logits(p32, c32, prompts, intra=lambda *a: sc.launch(
+            *a, lib=planted["ssd_intra_chunk"]))
+        del p32
+        hold_within_factor("kernel (f32 model)", got, plain, bad, ref,
+                           "the intra-chunk term in f64")
+    else:
+        ref = zoo_logits(params, cfg, prompts, attend=f32)
+        e = logit_errors(served, ref)
+        log(f"  prefill logits (std {ref.std().item():.3f}) against the "
+            f"model with attention in f32 (reported; no kernel on this "
+            f"path): max_abs_err {e[0]:.3e}, relative norm {e[1]:.3e}")
+    del params
+    torch.cuda.empty_cache()
+    row = dict(arch=cfg.name, layers=cfg.n_layers, of_layers=full.n_layers,
+               params=n_params, attn_impl=cfg.attn_impl,
+               launches_per_prefill={k: n for k, n in want.items() if n},
+               prefill_tokens_per_s=B * S / prefill_s, prefill_s=prefill_s,
+               decode_ms_per_step=step_s * 1e3,
+               prefill_busy=prefill_stats.get("busy"),
+               decode_busy=decode_stats.get("busy"),
+               peak_gib=peak / 2 ** 30, card=card)
+    log(f"  warm: prefill {prefill_s:.3f} s, {B * S / prefill_s:.1f} "
+        f"tokens/s, busy {row['prefill_busy']}; decode {step_s * 1e3:.3f} "
+        f"ms/step over {WARM_STEPS} steps, busy {row['decode_busy']}")
+    return row
+
+
+def zoo_reduced_against_cpu(dev) -> None:
+    """Each new architecture's reduced config in f32 (and gemma's at its
+    real head dim of 256 with attn_impl="flash"): prefill past the reduced
+    sliding window and four teacher-forced decode steps on the card
+    against the same on the CPU, the same weights and tokens; on the card
+    the kernels of the path launch once per layer per prefill.  deepseek-v3
+    (the one path of the MLA q_lora_rank and the sigmoid router) gets a
+    live router_bias."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    cases = [(arch, get_config(arch).reduced()) for arch in ZOO_REDUCED]
+    cases.append(("gemma-7b hd 256 flash", dataclasses.replace(
+        get_config("gemma-7b").reduced(), head_dim=256, attn_impl="flash")))
+    for label, cfg in cases:
+        params = init_params(cfg, seed=0, device="cpu")
+        if "router_bias" in params.get("moe_blocks", {}).get("moe", {}):
+            params["moe_blocks"]["moe"]["router_bias"] = 0.01 * torch.randn(
+                params["moe_blocks"]["moe"]["router_bias"].shape,
+                generator=torch.Generator().manual_seed(1))
+        tokens = torch.randint(0, cfg.vocab, (2, 100),
+                               generator=torch.Generator().manual_seed(0))
+        plain = _prefill_then_decode(params, cfg, tokens, 4,
+                                     torch.device("cpu"))
+        ops.reset_launches()
+        card = _prefill_then_decode(_to(params, dev), cfg, tokens.to(dev), 4,
+                                    dev)
+        want = zoo_expected(cfg)
+        if dict(ops.launches) != want:
+            raise RuntimeError(f"{label} reduced: launches {ops.launches}, "
+                               f"expected {want}")
+        worst = 0.0
+        for a, b in zip(card, plain, strict=True):
+            worst = max(worst, max_abs_err(a.cpu(), b))
+            torch.testing.assert_close(a.cpu(), b, **REDUCED_TOL)
+        log(f"  {label} reduced config in f32 (prefill 96 + 4 decode steps) "
+            f"on the card against the CPU: logits max_abs_err {worst:.3e} "
+            f"(rtol {REDUCED_TOL['rtol']:g}, atol {REDUCED_TOL['atol']:g}); "
+            f"launches {({k: n for k, n in want.items() if n})}")
+
+
+def zoo_path(dev, planted: dict, card: str) -> list:
+    """Every ZOO model at full width, then the reduced configs on the card
+    against the CPU.  Returns each model's serving row."""
+    rows = []
+    for arch, attn_impl, layers in ZOO:
+        rows.append(zoo_serve(dev, arch, attn_impl, layers, planted, card))
+        torch.cuda.empty_cache()
+    zoo_reduced_against_cpu(dev)
+    for row in rows:
+        log(json.dumps({"serving": row}))
+    return rows
+
+
 # -- 10. checkpoint and resume -------------------------------------------------
 def checkpoint_scheduler(mode: str, compression=None):
     """The main path's federation on a StreamScheduler (model_kind "cnn",
@@ -3969,13 +4338,13 @@ def time_masked_sgd(dev, leaves):
                 library_ms=library)
 
 
-def time_flash_attention(dev):
-    """The serving prefill's attention: one layer's q, k, v in the model's
-    layout, bf16, causal."""
+def time_flash_attention(dev, shape=FLASH_MAIN):
+    """A serving prefill's attention (nemotron's by default): one layer's q,
+    k, v in the model's layout, bf16, causal."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(5)
-    B, H, KV, S, hd = FLASH_MAIN
+    B, H, KV, S, hd = shape
     q, k, v = _qkv(dev, gen, B, H, KV, S, hd, torch.bfloat16)
 
     def sdpa():
@@ -3995,15 +4364,15 @@ def time_flash_attention(dev):
         f"bound), bound {bound:.3f} ms by {by}, plain {plain:.3f} ms, "
         f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
         f"{library:.3f} ms ({flops / library / 1e9:.1f} TFLOP/s)")
-    sdpa_backends(sdpa, q, k, v)
+    backend = sdpa_backends(sdpa, q, k, v)
     return dict(ms=kernel, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=library)
+                library_ms=library, library_backend=backend)
 
 
-def sdpa_backends(sdpa, q, k, v) -> None:
+def sdpa_backends(sdpa, q, k, v) -> str:
     """Names the yardstick: the backend PyTorch's dispatcher picks for the
     call and the kernels a profile of it records, then the call's time
-    under each backend that takes it."""
+    under each backend that takes it.  Returns the backend's name."""
     import warnings
 
     from torch.autograd import DeviceType
@@ -4033,6 +4402,7 @@ def sdpa_backends(sdpa, q, k, v) -> None:
         except RuntimeError as e:
             log(f"    under sdpa_kernel({backend.name}): not taken "
                 f"({str(e).splitlines()[0][:100]})")
+    return choice
 
 
 def time_weighted_agg_quant(dev, D: int):
@@ -4239,13 +4609,13 @@ def _log_sharded(name: str, shape: str, r: dict, composition: str) -> None:
         f"{r['composition_ms'] * 1e3:.1f} us; host us per call: {host}")
 
 
-def time_ssd_intra_chunk(dev):
-    """The serving prefill's intra-chunk term, one layer's: cells (batch *
-    chunks, heads) in the model's layout (C and B shared by the heads
-    through a stride-0 dim), f32."""
+def time_ssd_intra_chunk(dev, shape=SSD_MAIN):
+    """A serving prefill's intra-chunk term (mamba2's by default), one
+    layer's: cells (batch * chunks, heads) in the model's layout (C and B
+    shared by the heads through a stride-0 dim), f32."""
     from repro_torch.kernels import ssd_chunk as sc
     gen = torch.Generator(device=dev).manual_seed(10)
-    G, H, Q, N, P, dtype = SSD_MAIN
+    G, H, Q, N, P, dtype = shape
     cum, C, B, xdt = ssd_inputs(dev, gen, G, Q, N, P, dtype, H)
     kernel = device_ms(lambda: sc.launch(cum, C, B, xdt), 20)
     plain = device_ms(lambda: sc.ssd_intra_chunk_plain(cum, C, B, xdt), 5)
@@ -4398,6 +4768,8 @@ def main() -> None:
     paper_path(dev, len(leaves), D)
     serve_launches = serve_path(dev, planted)
     ssm_launches = ssm_serve_path(dev, planted_ssd)
+    zoo_rows = zoo_path(dev, {"flash_attention": planted,
+                              "ssd_intra_chunk": planted_ssd}, card)
     checkpoint_path(dev, len(leaves), card)
     uncut = scenario_path(dev, card)
     bank_path(dev, card, len(leaves), uncut)
@@ -4408,8 +4780,15 @@ def main() -> None:
     agg_t = time_weighted_agg(dev, D)
     sgd_t = time_masked_sgd(dev, leaves)
     flash_t = time_flash_attention(dev)
+    flash_gemma_t = time_flash_attention(dev, FLASH_GEMMA)
     quant_t = time_weighted_agg_quant(dev, D)
     ssd_t = time_ssd_intra_chunk(dev)
+    ssd_hymba_t = time_ssd_intra_chunk(dev, SSD_HYMBA[0])
+
+    def by_path(kernel):
+        """Each zoo path's launches of the kernel per prefill."""
+        return {r["arch"]: r["launches_per_prefill"][kernel]
+                for r in zoo_rows if kernel in r["launches_per_prefill"]}
     time_ssd_head_blocks(dev)
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
@@ -4443,12 +4822,17 @@ def main() -> None:
              source=f"{csrc}/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:64",
              launches=serve_launches["flash_attention"],
-             max_abs_err=flash_err, **flash_t),
+             max_abs_err=flash_err, **flash_t,
+             other_paths=by_path("flash_attention"),
+             other_shapes=[dict(q_k_v=list(FLASH_GEMMA), dtype="bf16",
+                                causal=True, **flash_gemma_t)]),
         dict(name="ssd_intra_chunk", route="cuda",
              source=f"{csrc}/ssd_intra_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:43",
              launches=ssm_launches["ssd_intra_chunk"], max_abs_err=ssd_err,
-             **ssd_t),
+             **ssd_t, other_paths=by_path("ssd_intra_chunk"),
+             other_shapes=[dict(cells_q_n_p=list(SSD_HYMBA[0][:5]),
+                                dtype="f32", **ssd_hymba_t)]),
     ]
     log(card)
     log(json.dumps({"kernels": rows}))

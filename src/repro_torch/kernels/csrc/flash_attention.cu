@@ -22,8 +22,8 @@
 //     one elected thread issues TMA copies (its warpgroup gives up registers
 //     with setmaxnreg.dec), and two consumers of 64 query rows each (which
 //     take them with setmaxnreg.inc);
-//   * TMA brings Q once and K and V tiles of 128 keys into a ring of STAGES
-//     shared-memory stages; K and V of each stage have a full mbarrier (the
+//   * TMA brings Q once and K and V tiles of 128 keys (64 at hd 256, see
+//     Tile) into a ring of STAGES shared-memory stages; K and V of each stage have a full mbarrier (the
 //     copy's bytes have landed) and a free one (all 8 consumer warps are done
 //     with it: K once its scores have landed, V once its P.V has), so the
 //     copies of the next tiles overlap this tile's products.  The tensor
@@ -64,6 +64,9 @@
 //     that is written has: key 0, or its own position, is live); the output
 //     is o times one reciprocal of l per row, within an f32 ulp of o / l
 //     before its rounding to bf16.
+// At hd 256 (gemma-7b) a consumer thread holds 128 f32 of O beside 32 of S
+// and 16 b32 of P, within the 240 registers setmaxnreg.inc gives it; S is a
+// 64 x 64 wgmma per k16 step and P . V one 64 x 256 wgmma per 16 keys.
 // The f32 kernel (no tensor-core type keeps f32's precision: TF32 keeps ~3
 // digits) runs on the CUDA cores: hd/32 threads per query row, each owning
 // 32 of its dims in 16-byte chunks, a shuffle sum per score, KV tiles staged
@@ -115,14 +118,17 @@ __device__ __forceinline__ int kv_tiles(int S, int causal, int q0, int bq,
 // ---- bf16: TMA and wgmma, warp-specialised ----------------------------------
 
 constexpr int BQ = 128;       // query rows per CTA, 64 per consumer warpgroup
-constexpr int BK = 128;       // keys per KV tile
 constexpr int STAGES = 2;     // K and V tiles in flight
 constexpr int THREADS = 384;  // producer warpgroup, then two consumers
 constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// keys per KV tile: 128, or 64 at hd 256, where Q (64 KB) and two stages of
+// K and V tiles of 128 keys (256 KB) would not fit the 227 KB of a block and
+// each consumer thread already holds 128 f32 of O
 template <int HD>
 struct Tile {
+  static constexpr int BK = HD == 256 ? 64 : 128;
   static constexpr int SW = HD >= 64 ? 128 : 2 * HD;  // swizzle span, bytes
   static constexpr int CB = SW / 2;        // columns of one TMA box
   static constexpr int BOXES = HD / CB;    // boxes across hd
@@ -217,6 +223,82 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32) = A . B, or d += A . B when `accumulate`: the scores of a
+// tile of 64 keys (head dim 256), A and B as for wgmma_ss_n128
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 256 f32) += A . B: head dim 256's P . V, A and B as for
+// wgmma_rs_n128
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d (64 x N f32) += A . B: A 64 x 16 bf16 from registers (the A fragment:
@@ -325,7 +407,7 @@ __device__ __forceinline__ void turn_pass(int c) {
 // BK keys of the tile at k_tile, as one commit group.  A k16 step moves 32
 // bytes along a row inside a box of SW-byte rows, and a box along hd.
 template <int HD>
-__device__ __forceinline__ void issue_scores(float (&s)[BK / 2],
+__device__ __forceinline__ void issue_scores(float (&s)[Tile<HD>::BK / 2],
                                              uint32_t q_rows,
                                              uint32_t k_tile) {
   using T = Tile<HD>;
@@ -336,8 +418,12 @@ __device__ __forceinline__ void issue_scores(float (&s)[BK / 2],
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t koff = (kk % T::KPB) * 32;  // 16 columns of bf16
-    wgmma_ss_n128(s, dq + ((kk / T::KPB * BQ * T::SW + koff) >> 4),
-                  dk + ((kk / T::KPB * BK * T::SW + koff) >> 4), kk > 0);
+    const uint64_t da = dq + ((kk / T::KPB * BQ * T::SW + koff) >> 4);
+    const uint64_t db = dk + ((kk / T::KPB * T::BK * T::SW + koff) >> 4);
+    if constexpr (T::BK == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else
+      wgmma_ss_n64(s, da, db, kk > 0);
   }
   wgmma_commit();
 }
@@ -347,19 +433,21 @@ __device__ __forceinline__ void issue_scores(float (&s)[BK / 2],
 // commit group.
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         uint32_t (&p)[BK / 4],
+                                         uint32_t (&p)[Tile<HD>::BK / 4],
                                          uint32_t v_tile) {
   using T = Tile<HD>;
-  const uint64_t dv = smem_desc<T::SW>(v_tile, BK * T::SW);
+  const uint64_t dv = smem_desc<T::SW>(v_tile, T::BK * T::SW);
   fence_regs(o);
   fence_regs(p);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
+  for (int kk = 0; kk < T::BK / 16; ++kk) {
     const uint32_t pa[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                             p[4 * kk + 3]};
     const uint64_t db = dv + ((kk * 16 * T::SW) >> 4);  // 16 keys on
-    if constexpr (HD == 128)
+    if constexpr (HD == 256)
+      wgmma_rs_n256(o, pa, db);
+    else if constexpr (HD == 128)
       wgmma_rs_n128(o, pa, db);
     else if constexpr (HD == 64)
       wgmma_rs_n64(o, pa, db);
@@ -374,7 +462,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 // scores; a row's 4 lanes share it), scales this lane's share of the
 // denominator l, leaves the probabilities exp2(s c - m c), c = scale
 // log2(e), in s and their sum in l, and returns in corr the factor that
-// rescales the accumulator.
+// rescales the accumulator.  BK: the keys of the tile.
+template <int BK>
 __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
                                                float (&m)[2], float (&l)[2],
                                                float (&corr)[2],
@@ -418,6 +507,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
 }
 
 // P, the probabilities rounded to bf16, as the A fragments of P . V
+template <int BK>
 __device__ __forceinline__ void to_bf16(const float (&s)[BK / 2],
                                         uint32_t (&p)[BK / 4]) {
 #pragma unroll
@@ -431,6 +521,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                       const __grid_constant__ CUtensorMap tv,
                       const TileArgs a) {
   using T = Tile<HD>;
+  constexpr int BK = T::BK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) &
@@ -525,8 +616,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) mbar_arrive(k_free(0));
-    online_softmax(s, m, l, corr, a, kt * BK, q0, row0, t);
-    to_bf16(s, p);
+    online_softmax<BK>(s, m, l, corr, a, kt * BK, q0, row0, t);
+    to_bf16<BK>(s, p);
 
     for (++kt, ++it; kt < n; ++kt, ++it) {
       const int st = it % STAGES, prev = (it - 1) % STAGES;
@@ -541,12 +632,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<1>();  // the scores have landed; P . V may still run
       fence_regs(s);
       if (lane == 0) mbar_arrive(k_free(st));
-      online_softmax(s, m, l, corr, a, kt * BK, q0, row0, t);
+      online_softmax<BK>(s, m, l, corr, a, kt * BK, q0, row0, t);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p);
       if (lane == 0) mbar_arrive(v_free(prev));
-      to_bf16(s, p);
+      to_bf16<BK>(s, p);
     }
 
     const int last = (it - 1) % STAGES;  // it: the tiles this consumer read
@@ -581,7 +672,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ---- f32: the CUDA cores ----------------------------------------------------
 
 constexpr int F32_BQ = 64;  // query rows per CTA
-constexpr int F32_BK = 32;  // keys per KV tile
 constexpr int F32_NC = 8;   // 16-byte chunks (32 dims) per thread
 
 // hd / 32 threads per query row; thread `part` of a row owns the dims
@@ -593,6 +683,9 @@ __global__ void __launch_bounds__(F32_BQ * HD / 32)
     flash_f32_kernel(const Args a) {
   constexpr int TPR = HD / 32;
   constexpr int THREADS = F32_BQ * TPR;
+  // keys per KV tile: 32, or 16 at hd 256, so that the K and V tiles stay
+  // within the 48 KB of static shared memory (2 x 16 x 256 x 4 = 32 KB)
+  constexpr int F32_BK = HD == 256 ? 16 : 32;
   __shared__ __align__(16) float k_s[F32_BK][HD];
   __shared__ __align__(16) float v_s[F32_BK][HD];
 
@@ -734,8 +827,8 @@ int launch_bf16(const Args& a, int B, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (n_tiles > 0x7fffffff ||
       !tensor_map<HD>(&tq, a.q, a.qs, B, a.H, a.S, BQ) ||
-      !tensor_map<HD>(&tk, a.k, a.ks, B, a.KV, a.S, BK) ||
-      !tensor_map<HD>(&tv, a.v, a.vs, B, a.KV, a.S, BK))
+      !tensor_map<HD>(&tk, a.k, a.ks, B, a.KV, a.S, T::BK) ||
+      !tensor_map<HD>(&tv, a.v, a.vs, B, a.KV, a.S, T::BK))
     return static_cast<int>(cudaErrorInvalidValue);
   TileArgs t;
   t.o = a.o;
@@ -790,6 +883,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
     case 32: return launch_hd<32>(a, B, bf16, st);
     case 64: return launch_hd<64>(a, B, bf16, st);
     case 128: return launch_hd<128>(a, B, bf16, st);
+    case 256: return launch_hd<256>(a, B, bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -800,7 +894,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // (bf16 or f32) on the device of the current context, each addressed through
 // element strides (batch, head, position) with the dim contiguous; `strides`
 // is a host array of 12: q's three, then k's, v's and o's.  Every row must
-// start on 16 bytes.  hd is 32, 64 or 128; H a multiple of KV; in f32, B * H
+// start on 16 bytes.  hd is 32, 64, 128 or 256; H a multiple of KV; in f32, B * H
 // at most 65535.  Launches on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments it does not take.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,

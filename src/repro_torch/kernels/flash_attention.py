@@ -29,7 +29,7 @@ SIGNATURES = {fn: (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
                for fn in _FN.values()}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 # the f32 kernel's grid has one row per (b, h), at most the CUDA grid's y
 # limit; the bf16 kernel's 1-D grid has no such limit
 F32_MAX_BATCH_HEADS = 65535
@@ -50,8 +50,7 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{tuple(v.shape)}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, got "
-                         f"{q.shape[3]} (head dim 256, gemma's, is not yet "
-                         f"ported)")
+                         f"{q.shape[3]}")
     if q.dtype not in _FN or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes q, k, v of one dtype in "
                         f"f32/bf16, got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -137,7 +137,8 @@ def masked_sgd(w: torch.Tensor, g: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B, H, S, hd), k and v (B, KV, S, hd), f32 or bf16, H a multiple
-    of KV (query head h reads KV head h // (H / KV)), hd 32, 64 or 128 ->
+    of KV (query head h reads KV head h // (H / KV)), hd 32, 64, 128 or
+    256 ->
     (B, H, S, hd) softmax attention in q's dtype, scaled by 1/sqrt(hd),
     causal unless asked otherwise."""
     _flash.check_args(q, k, v)

@@ -9,8 +9,13 @@ step by step against the cache (KV or SSM state); counterpart of
       --full --batch 4 --prompt-len 4096 --gen 32
 
 ``--arch`` takes the architectures the port runs
-(``repro_torch.configs.PORTED_IDS``): nemotron-4-15b (dense GQA) and
-mamba2-130m (Mamba2 SSD, whose prefill runs the ssd_intra_chunk kernel).
+(``repro_torch.configs.PORTED_IDS``): the dense nemotron-4-15b,
+starcoder2-3b, gemma-7b and command-r-plus-104b, the Mamba2 SSD
+mamba2-130m, the hybrid hymba-1.5b (attention and SSD heads side by side;
+the SSD prefill runs the ssd_intra_chunk kernel), and the MLA + MoE
+deepseek-v2-lite-16b and deepseek-v3-671b.  ``--full`` draws the registered
+config at full width: command-r-plus-104b (208 GB in bf16) and
+deepseek-v3-671b (1.34 TB) do not fit one card that way.
 
 Runs on the CUDA device unless ``--device cpu`` is given.  Weights are
 random, drawn from ``--seed``; so are the prompts and the sampled tokens
@@ -25,7 +30,7 @@ import time
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, get_config
+from repro_torch.configs.base import PORTED_IDS, ArchConfig, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.params import init_params, param_count
@@ -86,9 +91,9 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="nemotron-4-15b",
-                    help="an architecture the port runs: nemotron-4-15b, "
-                         "mamba2-130m")
+    ap.add_argument("--arch", default="nemotron-4-15b", choices=PORTED_IDS,
+                    help="an architecture the port runs: "
+                         + ", ".join(PORTED_IDS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)

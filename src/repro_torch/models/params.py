@@ -1,5 +1,7 @@
 """LM parameter initialisation, counterpart of ``repro/models/params.py``
-for the dense and SSM families.
+for the dense (GQA or MLA attention), MoE, SSM and hybrid families, the
+multi-token-prediction subtree included: the tree is the reference's key
+for key, shape for shape and dtype for dtype.
 
 Per-layer parameters are stacked with a leading (n_layers,) dim, as the
 reference stacks them for ``lax.scan``; head-structured projections are
@@ -32,22 +34,28 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def block_kinds(cfg: ArchConfig):
-    """Returns [(params_key, kind, n_layers), ...] stack layout: one stack
-    of SSM or dense blocks (the other families' layouts come with their
-    slices)."""
+    """Returns [(params_key, kind, n_layers), ...] stack layout."""
     if cfg.family == "ssm":
         return [("blocks", "ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        return [("blocks", "hybrid", cfg.n_layers)]
+    if cfg.family == "moe":
+        out = []
+        if cfg.first_k_dense:
+            out.append(("dense_blocks", "dense", cfg.first_k_dense))
+        out.append(("moe_blocks", "moe", cfg.n_layers - cfg.first_k_dense))
+        return out
     return [("blocks", "dense", cfg.n_layers)]
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raises for what the port does not run yet: any family but the dense
-    one with GQA attention and the SSM one."""
-    if cfg.family not in ("dense", "ssm"):
+    """Raises for what the port does not run yet: the multimodal (vlm) and
+    audio families."""
+    if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            f"port runs the dense GQA and the SSM families, the others come "
-            f"with later slices")
+            f"port runs the dense, moe, ssm and hybrid families, the "
+            f"multimodal and audio ones come with later slices")
 
 
 def _ssm_init(H: int):
@@ -73,9 +81,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def dense(*shape, scale=0.02):
+    def dense(*shape, scale=0.02, dt=dtype):
         return torch.randn(*shape, generator=gen, device=device,
-                           dtype=dtype).mul_(scale)
+                           dtype=dt).mul_(scale)
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(*shape, device=device, dtype=dt)
@@ -86,37 +94,110 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
             p["bias"] = zeros(*s, cfg.d_model, dt=torch.float32)
         return p
 
-    d, hd, V = cfg.d_model, cfg.head_dim, cfg.vocab_padded
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    params = {"embed": dense(V, d)}
+    draw = (dense, zeros, norm, device)
+    params = {"embed": dense(cfg.vocab_padded, cfg.d_model)}
     for name, kind, L in block_kinds(cfg):
-        if kind == "ssm":
-            params[name] = {"ln1": norm(L),
-                            "ssm": _ssm_params(cfg, L, dense, zeros, device)}
-            continue
-        attn = {"wq": dense(L, d, H * hd), "wk": dense(L, d, KV * hd),
-                "wv": dense(L, d, KV * hd), "wo": dense(L, H * hd, d)}
-        mlp = {}
-        if cfg.gated_mlp:
-            mlp["w_gate"] = dense(L, d, cfg.d_ff)
-        mlp["w_up"] = dense(L, d, cfg.d_ff)
-        mlp["w_down"] = dense(L, cfg.d_ff, d)
-        if cfg.use_bias:
-            attn.update(bq=zeros(L, H * hd), bk=zeros(L, KV * hd),
-                        bv=zeros(L, KV * hd), bo=zeros(L, d))
-            mlp.update(b_up=zeros(L, cfg.d_ff), b_down=zeros(L, d))
-        block = {"ln1": norm(L), "attn": attn, "mlp": mlp}
-        if not cfg.parallel_residual:
-            block["ln2"] = norm(L)
-        params[name] = block
+        params[name] = _block_params(cfg, kind, (L,), draw)
     params["final_norm"] = norm()
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense(d, V)
+        params["lm_head"] = dense(cfg.d_model, cfg.vocab_padded)
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "mtp_proj": dense(2 * cfg.d_model, cfg.d_model),
+            "block": _block_params(cfg, "dense", (), draw),
+            "norm": norm(),
+        }
     return params
 
 
-def _ssm_params(cfg: ArchConfig, L: int, dense, zeros, device):
-    """The reference's ``_ssm_params`` leaves, stacked over L layers:
+def _block_params(cfg: ArchConfig, kind: str, s: tuple, draw):
+    """One block's (or, with s = (L,), a stack's) leaves, as the
+    reference's ``_block_params`` lays them out."""
+    dense, zeros, norm, device = draw
+    p = {"ln1": norm(*s)}
+    if kind == "ssm":
+        p["ssm"] = _ssm_params(cfg, s, dense, zeros, device)
+    elif kind == "hybrid":
+        p["attn"] = _attn_params(cfg, s, dense, zeros)
+        p["ssm"] = _ssm_params(cfg, s, dense, zeros, device)
+        p["ln_a"] = norm(*s)
+        p["ln_s"] = norm(*s)
+        p["ln2"] = norm(*s)
+        p["mlp"] = _mlp_params(cfg, s, cfg.d_ff, dense, zeros)
+    elif kind == "moe":
+        p["attn"] = _attn_params(cfg, s, dense, zeros)
+        p["ln2"] = norm(*s)
+        p["moe"] = _moe_params(cfg, s, dense, zeros)
+    else:  # dense
+        p["attn"] = _attn_params(cfg, s, dense, zeros)
+        p["mlp"] = _mlp_params(cfg, s, cfg.d_ff, dense, zeros)
+        if not cfg.parallel_residual:
+            p["ln2"] = norm(*s)
+    return p
+
+
+def _attn_params(cfg: ArchConfig, s: tuple, dense, zeros):
+    """GQA or MLA attention, head projections flattened ((d, H*hd) etc.)."""
+    d, hd, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if cfg.use_mla:
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        r = cfg.kv_lora_rank
+        p = {}
+        if cfg.q_lora_rank:
+            p["w_dq"] = dense(*s, d, cfg.q_lora_rank)
+            p["q_ln"] = {"scale": zeros(*s, cfg.q_lora_rank,
+                                        dt=torch.float32)}
+            p["w_uq"] = dense(*s, cfg.q_lora_rank, H * qk)
+        else:
+            p["wq"] = dense(*s, d, H * qk)
+        p["w_dkv"] = dense(*s, d, r + cfg.qk_rope_dim)
+        p["kv_ln"] = {"scale": zeros(*s, r, dt=torch.float32)}
+        p["w_uk"] = dense(*s, r, H * cfg.qk_nope_dim)
+        p["w_uv"] = dense(*s, r, H * cfg.v_head_dim)
+        p["wo"] = dense(*s, H * cfg.v_head_dim, d)
+        return p
+    p = {"wq": dense(*s, d, H * hd), "wk": dense(*s, d, KV * hd),
+         "wv": dense(*s, d, KV * hd), "wo": dense(*s, H * hd, d)}
+    if cfg.use_bias:
+        p.update(bq=zeros(*s, H * hd), bk=zeros(*s, KV * hd),
+                 bv=zeros(*s, KV * hd), bo=zeros(*s, d))
+    return p
+
+
+def _mlp_params(cfg: ArchConfig, s: tuple, d_ff: int, dense, zeros):
+    d = cfg.d_model
+    p = {}
+    if cfg.gated_mlp:
+        p["w_gate"] = dense(*s, d, d_ff)
+    p["w_up"] = dense(*s, d, d_ff)
+    p["w_down"] = dense(*s, d_ff, d)
+    if cfg.use_bias:
+        p.update(b_up=zeros(*s, d_ff), b_down=zeros(*s, d))
+    return p
+
+
+def _moe_params(cfg: ArchConfig, s: tuple, dense, zeros):
+    """The router in f32 at scale 0.006, the routed experts stacked on an
+    (E,) dim, ``router_bias`` (f32 zeros) for the sigmoid router, and the
+    shared experts as one gated MLP of n_shared * moe_d_ff."""
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    p = {
+        "router": dense(*s, d, E, scale=0.006, dt=torch.float32),
+        "experts": {"w_gate": dense(*s, E, d, f), "w_up": dense(*s, E, d, f),
+                    "w_down": dense(*s, E, f, d)},
+    }
+    if cfg.router_score == "sigmoid":
+        p["router_bias"] = zeros(*s, E, dt=torch.float32)
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared"] = {"w_gate": dense(*s, d, fs), "w_up": dense(*s, d, fs),
+                       "w_down": dense(*s, fs, d)}
+    return p
+
+
+def _ssm_params(cfg: ArchConfig, s: tuple, dense, zeros, device):
+    """The reference's ``_ssm_params`` leaves, stacked over s = (L,) or
+    for one block s = ():
     projections and conv in ``cfg.dtype``, ``A_log``, ``D``, ``dt_bias``
     and ``ssm_norm`` in f32."""
     d, d_in, H = cfg.d_model, cfg.d_inner, cfg.ssm_n_heads
@@ -124,18 +205,18 @@ def _ssm_params(cfg: ArchConfig, L: int, dense, zeros, device):
     conv_ch = d_in + 2 * G * N
     a_init, dt_init = _ssm_init(H)
     return {
-        "in_z": dense(L, d, d_in),
-        "in_x": dense(L, d, d_in),
-        "in_B": dense(L, d, G * N),
-        "in_C": dense(L, d, G * N),
-        "in_dt": dense(L, d, H),
-        "conv_w": dense(L, K, conv_ch, scale=0.1),
-        "conv_b": zeros(L, conv_ch),
-        "A_log": a_init.repeat(L, 1).to(device),
-        "D": torch.ones(L, H, device=device),
-        "dt_bias": dt_init.repeat(L, 1).to(device),
-        "ssm_norm": zeros(L, d_in, dt=torch.float32),
-        "out_proj": dense(L, d_in, d),
+        "in_z": dense(*s, d, d_in),
+        "in_x": dense(*s, d, d_in),
+        "in_B": dense(*s, d, G * N),
+        "in_C": dense(*s, d, G * N),
+        "in_dt": dense(*s, d, H),
+        "conv_w": dense(*s, K, conv_ch, scale=0.1),
+        "conv_b": zeros(*s, conv_ch),
+        "A_log": a_init.repeat(*s, 1).to(device),
+        "D": torch.ones(*s, H, device=device),
+        "dt_bias": dt_init.repeat(*s, 1).to(device),
+        "ssm_norm": zeros(*s, d_in, dt=torch.float32),
+        "out_proj": dense(*s, d_in, d),
     }
 
 

@@ -29,8 +29,7 @@ def segsum(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, -torch.inf)
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, *,
-                intra=kops.ssd_intra_chunk):
+def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, *, intra=None):
     """Chunked SSD scan.
 
     x:  (Bb, S, H, P)     head inputs
@@ -40,7 +39,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, *,
     C:  (Bb, S, G, N)     output projections
     h0: (Bb, G, hg, P, N) optional initial state
     intra: the intra-chunk term, ``ops.ssd_intra_chunk``'s signature with
-           the cells as (batch * chunks * groups, heads per group)
+           the cells as (batch * chunks * groups, heads per group); by
+           default ``ops.ssd_intra_chunk``, looked up at the call
     Returns (y: (Bb,S,H,P), h_last: (Bb,G,hg,P,N) f32).
     """
     Bb, S, H, Pd = x.shape
@@ -65,7 +65,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, *,
     # (batch, chunk, group, head); the group's B and C rows are read by its
     # heads through a stride-0 dim, xdt and the output through strides
     cells = Bb * nc * G
-    y_intra = intra(
+    y_intra = (intra or kops.ssd_intra_chunk)(
         dA_cs.reshape(cells, hg, Q),
         Cr.permute(0, 1, 3, 2, 4).reshape(cells, 1, Q, N).expand(-1, hg, Q, N),
         Br.permute(0, 1, 3, 2, 4).reshape(cells, 1, Q, N).expand(-1, hg, Q, N),
@@ -124,8 +124,7 @@ def _causal_conv(xBC, w, b):
     return y + b
 
 
-def mamba_mixer(p, u, cfg, cache=None, decode=False, *,
-                intra=kops.ssd_intra_chunk):
+def mamba_mixer(p, u, cfg, cache=None, decode=False, *, intra=None):
     """Returns (out, cache_or_None).
 
     cache: {"conv": (Bb, K-1, Cc) raw pre-conv inputs,

@@ -6,7 +6,8 @@ The reference scans its stacked (L, ...) layer parameters with
 copies).  The KV and SSM caches are written in place (see
 ``attention.gqa_attention`` and ``ssd.mamba_mixer``), so ``prefill`` and
 ``decode_step`` return the cache they were given.  The training loss and
-multi-token prediction come with the training slice of the port.
+multi-token prediction (whose parameters ``params.init_params`` makes) come
+with the training slice of the port.
 """
 from __future__ import annotations
 
@@ -57,7 +58,8 @@ def _layer(tree, i: int):
 
 def model_forward(params, cfg: ArchConfig, tokens, *, positions=None,
                   cache=None, decode=False):
-    """Returns (hidden (B,S,d), aux_loss, cache_or_None).
+    """Returns (hidden (B,S,d), aux_loss, cache_or_None): the stacks of
+    ``block_kinds`` in turn, their blocks' aux losses summed.
 
     tokens: (B,S); decode: S == 1, positions: (1,) current position.
     """
@@ -86,36 +88,49 @@ def model_forward(params, cfg: ArchConfig, tokens, *, positions=None,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     """Stacked per-layer caches on ``device`` (the CUDA device unless the
-    CPU is asked for).  Attention: the kv dim flattened (KV*hd),
-    ``pos_map`` -1 for empty slots, a ring buffer of ``sliding_window``
-    slots for SWA archs.  SSM: the last K-1 conv inputs (``cfg.dtype``) and
-    the f32 state."""
+    CPU is asked for), one dict per stack of ``block_kinds``.  GQA
+    attention: the kv dim flattened (KV*hd), ``pos_map`` -1 for empty
+    slots, a ring buffer of ``sliding_window`` slots for SWA archs.  MLA:
+    the compressed ``ckv`` and ``krope`` rows in ``max_len`` slots (no ring
+    buffer).  SSM (alone or beside attention in the hybrid block): the last
+    K-1 conv inputs (``cfg.dtype``) and the f32 state."""
     check_ported(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
     slots = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(*shape, dtype=dt, device=device)
+
     cache = {}
     for name, kind, L in block_kinds(cfg):
-        if kind == "ssm":
+        c = {}
+        if kind in ("dense", "moe", "hybrid") and cfg.n_heads:
+            if cfg.use_mla:
+                c["attn"] = {
+                    "ckv": zeros(L, batch, max_len, cfg.kv_lora_rank),
+                    "krope": zeros(L, batch, max_len, cfg.qk_rope_dim),
+                    "pos_map": torch.full((L, max_len), -1, dtype=torch.int32,
+                                          device=device),
+                }
+            else:
+                width = cfg.n_kv_heads * cfg.head_dim
+                c["attn"] = {
+                    "k": zeros(L, batch, slots, width),
+                    "v": zeros(L, batch, slots, width),
+                    "pos_map": torch.full((L, slots), -1, dtype=torch.int32,
+                                          device=device),
+                }
+        if kind in ("ssm", "hybrid"):
             G, N = cfg.ssm_n_groups, cfg.ssm_d_state
             hg = cfg.ssm_n_heads // G
             conv_ch = cfg.d_inner + 2 * G * N
-            cache[name] = {"ssm": {
-                "conv": torch.zeros(L, batch, cfg.ssm_d_conv - 1, conv_ch,
-                                    dtype=dtype, device=device),
-                "state": torch.zeros(L, batch, G, hg, cfg.ssm_head_dim, N,
-                                     dtype=torch.float32, device=device),
-            }}
-            continue
-        width = cfg.n_kv_heads * cfg.head_dim
-        cache[name] = {"attn": {
-            "k": torch.zeros(L, batch, slots, width, dtype=dtype,
-                             device=device),
-            "v": torch.zeros(L, batch, slots, width, dtype=dtype,
-                             device=device),
-            "pos_map": torch.full((L, slots), -1, dtype=torch.int32,
-                                  device=device),
-        }}
+            c["ssm"] = {
+                "conv": zeros(L, batch, cfg.ssm_d_conv - 1, conv_ch),
+                "state": zeros(L, batch, G, hg, cfg.ssm_head_dim, N,
+                               dt=torch.float32),
+            }
+        cache[name] = c
     return cache
 
 

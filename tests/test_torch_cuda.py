@@ -70,13 +70,15 @@ def test_weighted_agg_kernel_refuses_rows_off_16_bytes(card, shape):
                        torch.ones(()))
 
 
-# (B, H, KV, S, hd); the bf16 kernel's tiles are 128 query rows by 128 keys:
-# S = 1, 17 and 64 lie inside one tile, 129 and 257 one row past a tile,
-# and (1, 8, 8, 300, 128) has KV = H
+# (B, H, KV, S, hd); the bf16 kernel's tiles are 128 query rows by 128 keys
+# (64 keys at hd 256): S = 1, 17 and 64 lie inside one tile, 129 and 257 one
+# row past a tile, and (1, 8, 8, 300, 128) has KV = H; at hd 256 (gemma's)
+# S = 65 is one key past a KV tile, 100 and 300 ragged
 FLASH_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 4, 1, 384, 128),
                 (2, 2, 2, 100, 32), (1, 48, 8, 1000, 128),
                 (1, 4, 2, 1, 128), (2, 4, 2, 17, 128), (1, 4, 2, 64, 64),
-                (1, 4, 2, 129, 128), (1, 4, 2, 257, 128), (1, 8, 8, 300, 128)]
+                (1, 4, 2, 129, 128), (1, 4, 2, 257, 128), (1, 8, 8, 300, 128),
+                (1, 4, 2, 100, 256), (2, 2, 2, 65, 256), (1, 16, 16, 300, 256)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -136,8 +138,8 @@ def test_flash_attention_kernel_takes_more_than_65535_batch_heads(card):
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_read(card):
-    x = torch.ones(1, 2, 16, 256, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="256"):
+    x = torch.ones(1, 2, 16, 96, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="96"):
         ops.flash_attention(x, x, x)
     y = torch.ones(1, 2, 16, 72, device=card, dtype=torch.bfloat16)[..., 4:68]
     with pytest.raises(ValueError, match="16 bytes"):
@@ -172,6 +174,55 @@ def test_reduced_lm_prefill_on_the_card_matches_the_cpu(card):
     torch.cuda.synchronize()
     assert ops.launches["flash_attention"] == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# the LM zoo's reduced configs in f32 (gemma's also at its real head dim of
+# 256 with attn_impl="flash"): a prefill past the reduced sliding window and
+# two decode steps on the card against the CPU, and the kernels of the path
+# launched once per layer per prefill
+ZOO_REDUCED = [("starcoder2-3b", {}), ("gemma-7b", {}),
+               ("gemma-7b", {"head_dim": 256, "attn_impl": "flash"}),
+               ("command-r-plus-104b", {"attn_impl": "flash"}),
+               ("hymba-1.5b", {}), ("deepseek-v2-lite-16b", {}),
+               ("deepseek-v3-671b", {})]
+
+
+@pytest.mark.parametrize("arch,changes", ZOO_REDUCED)
+def test_zoo_reduced_on_the_card_matches_the_cpu(card, arch, changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 98),
+                           generator=torch.Generator().manual_seed(0))
+
+    def run(p, toks, device):
+        cache = transformer.init_cache(cfg, 2, 98, device)
+        out = [transformer.prefill(p, cfg, toks[:, :96], cache)[0]]
+        for t in (96, 97):
+            out.append(transformer.decode_step(p, cfg, cache,
+                                               toks[:, t:t + 1], t)[0])
+        return out
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(card)
+
+    want = run(params, tokens, "cpu")
+    ops.reset_launches()
+    got = run(to_card(params), tokens.to(card), card)
+    torch.cuda.synchronize()
+    flash = cfg.attn_impl == "flash" and not cfg.sliding_window
+    assert ops.launches["flash_attention"] == (cfg.n_layers if flash else 0)
+    assert ops.launches["ssd_intra_chunk"] == \
+        (cfg.n_layers if cfg.family == "hybrid" else 0)
+    for a, b in zip(got, want, strict=True):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 
 def _quantized(card, K, D, chunk, levels, seed):
@@ -384,6 +435,30 @@ def test_ssd_intra_chunk_f32_kernel_takes_any_heads_per_cta(card, heads):
     torch.testing.assert_close(
         got, sc.ssd_intra_chunk_plain(cum, C, B, xdt),
         **ops.TOLERANCE["ssd_intra_chunk"][torch.float32])
+
+
+# hymba-1.5b's SSD: 50 heads of one group, N 16, P 64; (64, 256) is the
+# serving prefill's cells, where one CTA takes all 50 heads; at (4, 64) and
+# (16, 256) heads_per_cta cuts them into blocks of a multiple of the three
+# consumer warpgroups, the last block ragged
+@pytest.mark.parametrize("Go,Q", [(64, 256), (4, 64), (16, 256), (4, 256)])
+def test_ssd_intra_chunk_kernel_at_hymbas_heads(card, Go, Q):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_chunk as sc
+    H, N, P = 50, 16, 64
+    cum, C, B, xdt = _ssd_split_cells(card, Go, H, Q, N, P, torch.float32)
+    lib = build.load("ssd_intra_chunk", sc.SIGNATURES)
+    heads = sc.heads_per_cta(
+        Go, H, Q, True,
+        torch.cuda.get_device_properties(card).multi_processor_count,
+        lib.ssd_intra_chunk_f32_warpgroups(P))
+    assert heads == H or (heads % 3 == 0 and H % heads)
+    got = ops.ssd_intra_chunk(cum, C, B, xdt)
+    torch.cuda.synchronize()
+    want = sc.ssd_intra_chunk_plain(cum, C, B, xdt)
+    torch.testing.assert_close(
+        got, want, **ops.TOLERANCE["ssd_intra_chunk"][torch.float32])
+    assert _f32_excess(got, cum, C, B, xdt) <= 1.0
 
 
 def test_ssd_intra_chunk_kernel_refuses_what_it_cannot_read(card):

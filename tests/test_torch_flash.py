@@ -37,6 +37,7 @@ def _f32(x):
     (2, 4, 2, 256, 64),
     (1, 4, 1, 384, 128),   # MQA
     (2, 2, 2, 100, 32),    # S not a multiple of the tile
+    (1, 4, 2, 100, 256),   # gemma's head dim, S ragged
 ])
 def test_flash_attention_matches_reference(B, H, KV, S, hd, dtype, causal):
     (q, k, v), (jq, jk, jv) = _inputs(B, H, KV, S, hd, dtype)
@@ -57,8 +58,8 @@ def test_flash_attention_matches_reference(B, H, KV, S, hd, dtype, causal):
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take():
-    x = torch.zeros(1, 2, 8, 256)
-    with pytest.raises(ValueError, match="256"):
+    x = torch.zeros(1, 2, 8, 96)
+    with pytest.raises(ValueError, match="96"):
         ops.flash_attention(x, x, x)
     q, k = torch.zeros(1, 3, 8, 32), torch.zeros(1, 2, 8, 32)
     with pytest.raises(ValueError, match="multiple of KV"):

@@ -19,7 +19,7 @@ from repro.models import common as jcommon
 from repro.models import rotary as jrotary
 from repro.models import transformer as jtransformer
 from repro.models.params import init_params as jinit_params
-from repro_torch.configs import get_config
+from repro_torch.configs import PORTED_IDS, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import attention, common, rotary, transformer
@@ -57,40 +57,63 @@ def _close(got, want, **tol):
 # -- configs ------------------------------------------------------------------
 
 def _same_fields(cfg, jcfg):
-    """The port's config against the reference's on every field the port
-    keeps."""
-    want = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(cfg)}
-    assert dataclasses.asdict(cfg) == want
-    assert cfg.vocab_padded == jcfg.vocab_padded
+    """The port's config against the reference's on every field, the
+    nested FedConfig field by field, and on the derived properties."""
+    assert [f.name for f in dataclasses.fields(cfg)] == \
+        [f.name for f in dataclasses.fields(jcfg)]
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    for name in ("vocab_padded", "attn_free", "d_inner", "ssm_n_heads",
+                 "moe_layers", "dense_layers"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        assert cfg.supports_shape(shape) == jcfg.supports_shape(shape)
 
 
-@pytest.mark.parametrize("arch", ["nemotron-4-15b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", PORTED_IDS)
 def test_config_and_reduced_match_reference(arch):
     jcfg = jget_config(arch)
     _same_fields(get_config(arch), jcfg)
     _same_fields(get_config(arch).reduced(), jcfg.reduced())
     assert get_config(arch).attn_impl == "chunked"
-    assert (get_config(arch).d_inner, get_config(arch).ssm_n_heads) == \
-        (jcfg.d_inner, jcfg.ssm_n_heads)
-    # the reference's fields the port leaves out hold their defaults in
-    # the architecture: the port drops no setting of it
-    kept = {f.name for f in dataclasses.fields(get_config(arch))}
+    # every field keeps the reference's default
     default = type(jcfg)(name="", family="dense", n_layers=1, d_model=1,
                          vocab=1)
-    for f in dataclasses.fields(jcfg):
-        if f.name not in kept:
-            assert getattr(jcfg, f.name) == getattr(default, f.name), f.name
+    mine = type(get_config(arch))(name="", family="dense", n_layers=1,
+                                  d_model=1, vocab=1)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(default)
+
+
+def test_registry_matches_reference():
+    from repro.configs import base as jbase
+    from repro_torch.configs import base
+    assert base.ARCH_IDS == jbase.ARCH_IDS
+    assert base.PAPER_IDS == jbase.PAPER_IDS
+    assert {k: dataclasses.asdict(v) for k, v in base.INPUT_SHAPES.items()} \
+        == {k: dataclasses.asdict(v)
+            for k, v in jbase.INPUT_SHAPES.items()}
+    assert dataclasses.asdict(base.FedConfig()) == \
+        dataclasses.asdict(jbase.FedConfig())
+    assert set(PORTED_IDS) == set(base.ARCH_IDS) - {"llava-next-34b",
+                                                     "musicgen-medium"}
+    mine = base.all_configs()
+    assert list(mine) == PORTED_IDS
+    for arch, cfg in mine.items():
+        _same_fields(cfg, jget_config(arch))
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(NotImplementedError, match="later slices"):
-        get_config("hymba-1.5b")
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), family="moe")
-    with pytest.raises(NotImplementedError, match="later slices"):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slices"):
+    for arch in ("llava-next-34b", "musicgen-medium"):
+        with pytest.raises(NotImplementedError, match="later slices"):
+            get_config(arch)
+    for family in ("vlm", "audio"):
+        cfg = dataclasses.replace(get_config(ARCH).reduced(), family=family)
+        with pytest.raises(NotImplementedError, match="later slices"):
+            init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="later slices"):
+            transformer.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(ValueError, match="block kind"):
         block_apply({}, torch.zeros(1, 1, 8), get_config(ARCH).reduced(),
-                    "hybrid", torch.zeros(1))
+                    "vlm", torch.zeros(1))
 
 
 # -- (b) building blocks ------------------------------------------------------
