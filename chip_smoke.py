@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the federated
 round in plan and device mode, the compressed federated round, the client-sharded round, the
 paper's experiments with the client-sequential round, LM serving,
-Mamba2 SSD serving, the LM zoo's dense, hybrid and MLA + MoE serving, the
+Mamba2 SSD serving, the LM zoo's dense, hybrid, MLA + MoE, multimodal and
+audio serving, federated LM training, the
 streamed federation's checkpoint and resume, the
 streaming scenario library through its CLI, the tiered client bank
 with its cohort prefetch and the telemetry, the live federation
@@ -42,7 +43,9 @@ it, and nothing of JAX or of the JAX package.  In order it
    draws), both of its planted faults outside ops.TOLERANCE there;
    flash_attention also at head dim 256 (gemma-7b's prefill shape, bf16
    and f32, causal and not, ragged S; the planted fault outside the bf16
-   bound at gemma's shape) and ssd_intra_chunk also at hymba-1.5b's 50
+   bound at gemma's shape), at llava-next-34b's prefill with its patches
+   (H 56, KV 8, S 4,672) and at musicgen-medium's (hd 64, H = KV = 24),
+   the planted fault outside the bf16 bound at both, and ssd_intra_chunk also at hymba-1.5b's 50
    heads (its serving cells (64, 50), N 16, and cut, ragged head blocks,
    SSD_HYMBA; the head fault outside ops.TOLERANCE at each);
 4. drives the federated round, ``FederatedTrainer(engine="plan")`` on the
@@ -123,7 +126,9 @@ it, and nothing of JAX or of the JAX package.  In order it
    decode steps against the full forward in f32, the reduced config on the
    card against the CPU; prefill and decode times, busy shares, memory;
    then the LM zoo (ZOO): starcoder2-3b, gemma-7b (attn_impl="flash", head
-   dim 256), hymba-1.5b, deepseek-v2-lite-16b at full width and depth and
+   dim 256), hymba-1.5b, deepseek-v2-lite-16b, llava-next-34b and
+   musicgen-medium (both attn_impl="flash"; musicgen's prompts and tokens
+   carry its 4 codebooks) at full width and depth and
    command-r-plus-104b at full width with 4 of its 64 layers
    (attn_impl="flash"), each from seed 0 through ``serve`` (batch 4,
    prompt 4,096, ZOO_GEN decode steps) and freed before the next: launch
@@ -135,10 +140,20 @@ it, and nothing of JAX or of the JAX package.  In order it
    (LOGITS_FACTOR, the planted flash fault outside), hymba's in f32 with
    the kernel and with the plain intra-chunk term against the term in f64
    (LOGITS_FACTOR, the planted SSD fault outside); starcoder2's and
-   deepseek's against attention in f32, reported; then every new
+   deepseek's against attention in f32, reported; llava's 576 random
+   patches ahead of its 4,096-token prompts through
+   ``transformer.prefill(patch_emb=)`` into a cache of 4,704 slots, then
+   LLAVA_GEN decode steps at positions 4,672 + i (60 flash launches at S
+   4,672, none per step, finite logits); then every new
    architecture's reduced config in f32 on the card against the CPU
    (deepseek-v3-671b runs only so, with a live router_bias; gemma's also
-   at head dim 256 with flash);
+   at head dim 256 with flash; llava's with its 8 patches); then LM
+   training (9d): ``repro_torch.launch.train``'s main at its defaults with
+   ``--full --arch mamba2-130m`` for TRAIN_ROUNDS rounds (masked_sgd E x
+   leaves launches a round and no other kernel inside the rounds, finite
+   probe losses, warm rounds/s, memory), then one round of each family's
+   reduced representative in f32 on the card against the CPU (each leaf's
+   delta within TRAIN_DELTA_TOL of its norm, see TRAIN_FLIP_SHARE);
 10. drives checkpoint and resume of the streamed federation: a
    ``StreamScheduler`` with ``model_kind="cnn"`` over the main path's
    EMNIST federation (capacity CKPT_CAPACITY), a TraceShift, an
@@ -262,9 +277,10 @@ it, and nothing of JAX or of the JAX package.  In order it
    scaled_dot_product_attention, whose backend is named and each backend
    timed), and prints them, the sharded kernels' timings from step 7 among
    them, as one ``{"kernels": [...]}`` line; flash_attention's row also
-   carries gemma-7b's shape (head dim 256) and ssd_intra_chunk's hymba's
-   cells, under ``other_shapes``, and each the zoo paths' launches per
-   prefill under ``other_paths``.  ssd_intra_chunk's bound
+   carries gemma-7b's shape (head dim 256), llava's and musicgen's, and
+   ssd_intra_chunk's hymba's cells, under ``other_shapes``, and each the
+   zoo paths' launches per prefill under ``other_paths`` (masked_sgd's:
+   the training round's).  ssd_intra_chunk's bound
    counts the group's scores once per pair, as its inputs need, and the
    per-head reckoning (the scores counted once per head) is printed
    beside it.
@@ -321,6 +337,12 @@ WARM_STEPS = 8          # decode steps timed again once warm
 FLASH_MAIN = (SERVE_BATCH, 48, 8, PROMPT_LEN, 128)
 # and at gemma-7b's, head dim 256 (the kernel's tiles of 64 keys there)
 FLASH_GEMMA = (SERVE_BATCH, 16, 16, PROMPT_LEN, 256)
+# llava-next-34b's prefill with its 576 patches ahead of the 4,096 text
+# tokens (S 4,672, a ragged last tile; a group of 7 query heads per KV
+# head), and musicgen-medium's (hd 64, H = KV = 24)
+LLAVA_PATCHES = 576
+FLASH_LLAVA = (SERVE_BATCH, 56, 8, LLAVA_PATCHES + PROMPT_LEN, 128)
+FLASH_MUSICGEN = (SERVE_BATCH, 24, 24, PROMPT_LEN, 64)
 # edge shapes that take other code: (B, H, KV, S, hd, dtype, causal)
 FLASH_EDGES = [
     (2, 4, 2, 100, 128, torch.bfloat16, True),   # keys past S masked
@@ -471,12 +493,48 @@ ZOO = [("starcoder2-3b", "chunked", None),
        ("gemma-7b", "flash", None),
        ("hymba-1.5b", "chunked", None),
        ("deepseek-v2-lite-16b", "chunked", None),
-       ("command-r-plus-104b", "flash", 4)]
-ZOO_GEN = GEN
+       ("command-r-plus-104b", "flash", 4),
+       ("llava-next-34b", "flash", None),
+       ("musicgen-medium", "flash", None)]
+# decode steps through serve: the warm ms/step is read over WARM_STEPS
+# steps after it, so 8 keep every check at a quarter of 32's host time
+ZOO_GEN = 8
+# llava's patch prefill: its prompts after LLAVA_PATCHES patches into a
+# cache of LLAVA_PATCHES + PROMPT_LEN + LLAVA_GEN = 4,704 slots
+LLAVA_GEN = GEN
 # the reduced configs run on the card against the CPU (deepseek-v3-671b,
-# 1.34 TB in bf16, runs only so)
+# 1.34 TB in bf16, runs only so; llava-next-34b with its reduced config's
+# 8 patches)
 ZOO_REDUCED = ["starcoder2-3b", "gemma-7b", "command-r-plus-104b",
-               "hymba-1.5b", "deepseek-v2-lite-16b", "deepseek-v3-671b"]
+               "hymba-1.5b", "deepseek-v2-lite-16b", "deepseek-v3-671b",
+               "llava-next-34b", "musicgen-medium"]
+# LM training: launch/train.py at its defaults (the reference CLI's: C 4,
+# E 2, batch 2, seq 128, scheme C, eta0 0.05) at full width on TRAIN_ARCH
+# for TRAIN_ROUNDS rounds; then one round of each family's reduced
+# representative (TRAIN_REDUCED) in f32 on the card against the CPU, from
+# the same params, masks and batches.  Each leaf's delta there must agree
+# within TRAIN_DELTA_TOL of its norm.  Each local step and the aggregation
+# round the parameter in f32, so two rounds whose updates differ at all
+# put a few elements an ulp apart at each of those E + 1 roundings: where
+# such elements are at most TRAIN_FLIP_SHARE of a leaf they are set aside
+# first (measured on the CPU against the reference: 0.1-0.2% of the
+# reduced mamba2's in_B, in_C, in_dt, at most 2 ulps; a leaf-wide error
+# moves most elements and is held to TRAIN_DELTA_TOL)
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_ROUNDS = 4
+TRAIN_REDUCED = ["nemotron-4-15b", "gemma-7b", "deepseek-v3-671b",
+                 "mamba2-130m", "hymba-1.5b", "llava-next-34b",
+                 "musicgen-medium"]
+TRAIN_SHAPE = dict(n_clients=4, local_epochs=2, batch=2, seq=32)
+TRAIN_DELTA_TOL = 1e-4
+TRAIN_FLIP_SHARE = 0.01
+# a leaf whose exact gradient is zero has a delta of rounding noise alone,
+# which no tolerance relative to itself can hold: the key bias without
+# rotary embeddings (each query's scores shift by one constant, which the
+# softmax removes; musicgen's).  Both devices' deltas there must stay below
+# TRAIN_ZERO_TOL of the round's largest leaf delta
+TRAIN_ZERO_GRAD = "attn/bk"
+TRAIN_ZERO_TOL = 1e-6
 # the decode steps against the full forward in f32 (tests/test_decode.py's
 # check at the reference's tolerance), the same weights upcast to f32
 DECODE_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -688,6 +746,20 @@ def expected_launches(**counts) -> dict:
     return {name: counts.get(name, 0) for name in ops.launches}
 
 
+def lm_leaves(dev, arch: str) -> dict:
+    """Each leaf's element count and dtype in ``arch``'s full-width tree,
+    in the order a round flattens it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fed_step import flatten_tree
+    from repro_torch.models.params import init_params
+    params = init_params(get_config(arch), seed=0, device=dev)
+    out = {name: (p.numel(), p.dtype)
+           for name, p in flatten_tree(params).items()}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- 3. each kernel against its plain version ---------------------------------
 def check_weighted_agg(dev, D: int) -> float:
     from repro_torch.kernels import ops
@@ -722,7 +794,7 @@ def check_weighted_agg(dev, D: int) -> float:
     return worst
 
 
-def check_masked_sgd(dev, leaves, paper_leaves) -> float:
+def check_masked_sgd(dev, leaves, paper_leaves, train_leaves) -> float:
     from repro_torch.kernels import ops
     from repro_torch.kernels.masked_sgd import masked_sgd_plain
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -751,6 +823,39 @@ def check_masked_sgd(dev, leaves, paper_leaves) -> float:
             f"(rtol {tol['rtol']:g}, atol {tol['atol']:g})")
         torch.testing.assert_close(got, want, **tol)
         worst = max(worst, err)
+    # the LM round's launches (step 9d): every leaf of TRAIN_ARCH at full
+    # width in its own dtype (bf16; f32 for the norms' scales and the
+    # SSM's A_log, D, dt_bias) as (clients, n), compared by the change
+    # w_new - w.
+    # At the round's own scale (eta0 0.05, gradients far below w) the
+    # change is below bf16's resolution of w at most elements, so a kernel
+    # that dropped it would pass a comparison of w_new: here the gradient
+    # is drawn 20x w's scale, so that the change (scale 0.05) is as large
+    # as w, and the run fails unless a dropped update would fail
+    C = TRAIN_SHAPE["n_clients"]
+    for name, (n, dtype) in train_leaves.items():
+        tol = ops.TOLERANCE["masked_sgd"][dtype]
+        w = torch.randn(C, n, device=dev, generator=gen).to(dtype)
+        g = (20 * torch.randn(C, n, device=dev, generator=gen)).to(dtype)
+        s = 0.05 * (torch.rand(C, device=dev, generator=gen) < 0.8)
+        s[0] = 0.05                           # at least one live client
+        got = ops.masked_sgd(w.clone(), g, s).float() - w.float()
+        want = masked_sgd_plain(w.clone(), g, s).float() - w.float()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        caught = (~torch.isclose(torch.zeros_like(want), want, **tol))
+        caught = caught[s > 0].float().mean().item()
+        log(f"  masked_sgd {TRAIN_ARCH} {name} ({C}, {n}) {dtype}, "
+            f"the change w_new - w: max_abs_err {err:.3e} (rtol "
+            f"{tol['rtol']:g}, atol {tol['atol']:g}); a dropped update "
+            f"fails at {caught:.4f} of the live rows' elements")
+        torch.testing.assert_close(got, want, **tol)
+        if caught < 0.9:
+            raise RuntimeError(f"masked_sgd {name} {dtype}: a dropped update "
+                               f"would fail at only {caught:.4f} of the "
+                               f"elements")
+        worst = max(worst, err)
+        del w, g, got, want
     return worst
 
 
@@ -808,10 +913,12 @@ def check_flash_attention(dev, planted) -> float:
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = 0.0
-    # the serving shapes, nemotron's and gemma's, where the planted fault
-    # must fail both bounds
+    # the serving shapes, nemotron's, gemma's, llava's (with its patches)
+    # and musicgen's, where the planted fault must fail both bounds
     mains = [(*FLASH_MAIN, torch.bfloat16, True),
-             (*FLASH_GEMMA, torch.bfloat16, True)]
+             (*FLASH_GEMMA, torch.bfloat16, True),
+             (*FLASH_LLAVA, torch.bfloat16, True),
+             (*FLASH_MUSICGEN, torch.bfloat16, True)]
     for B, H, KV, S, hd, dtype, causal in mains + FLASH_EDGES:
         q, k, v = _qkv(dev, gen, B, H, KV, S, hd, dtype)
         got = ops.flash_attention(q, k, v, causal=causal)
@@ -2227,18 +2334,21 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _prefill_then_decode(params, cfg, tokens, n_decode: int, dev):
-    """Prefill all but the last n_decode tokens, then decode those
-    teacher-forced; the logits of every step."""
+def _prefill_then_decode(params, cfg, tokens, n_decode: int, dev,
+                         patch_emb=None):
+    """Prefill all but the last n_decode tokens (after the patches, where
+    given), then decode those teacher-forced; the logits of every step."""
     from repro_torch.models import transformer
-    B, S = tokens.shape
+    B, S = tokens.shape[:2]
     Sp = S - n_decode
-    cache = transformer.init_cache(cfg, B, S, dev)
-    lg, cache = transformer.prefill(params, cfg, tokens[:, :Sp], cache)
+    P = 0 if patch_emb is None else patch_emb.shape[1]
+    cache = transformer.init_cache(cfg, B, P + S, dev)
+    lg, cache = transformer.prefill(params, cfg, tokens[:, :Sp], cache,
+                                    patch_emb=patch_emb)
     out = [lg]
     for t in range(Sp, S):
         lg, cache = transformer.decode_step(params, cfg, cache,
-                                            tokens[:, t:t + 1], t)
+                                            tokens[:, t:t + 1], P + t)
         out.append(lg)
     return out
 
@@ -2788,8 +2898,9 @@ def zoo_serve(dev, arch: str, attn_impl: str, layers, planted: dict,
     for name in ("prefill_logits", "logits"):
         if not bool(torch.isfinite(out[name]).all()):
             raise RuntimeError(f"non-finite {name} serving {cfg.name}")
-    if out["prefill_logits"].shape != (B, 1, cfg.vocab) or \
-            out["tokens"].shape != (B, ZOO_GEN):
+    K = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    if out["prefill_logits"].shape != (B, 1, *K, cfg.vocab) or \
+            out["tokens"].shape != (B, ZOO_GEN, *K):
         raise RuntimeError(f"{cfg.name}: prefill logits shaped "
                            f"{tuple(out['prefill_logits'].shape)}, tokens "
                            f"{tuple(out['tokens'].shape)}")
@@ -2875,6 +2986,8 @@ def zoo_serve(dev, arch: str, attn_impl: str, layers, planted: dict,
         log(f"  prefill logits (std {ref.std().item():.3f}) against the "
             f"model with attention in f32 (reported; no kernel on this "
             f"path): max_abs_err {e[0]:.3e}, relative norm {e[1]:.3e}")
+    patches = llava_patch_path(dev, params, cfg, prompts) \
+        if cfg.n_patches else None
     del params
     torch.cuda.empty_cache()
     row = dict(arch=cfg.name, layers=cfg.n_layers, of_layers=full.n_layers,
@@ -2885,10 +2998,82 @@ def zoo_serve(dev, arch: str, attn_impl: str, layers, planted: dict,
                prefill_busy=prefill_stats.get("busy"),
                decode_busy=decode_stats.get("busy"),
                peak_gib=peak / 2 ** 30, card=card)
+    if patches is not None:
+        row["with_patches"] = patches
     log(f"  warm: prefill {prefill_s:.3f} s, {B * S / prefill_s:.1f} "
         f"tokens/s, busy {row['prefill_busy']}; decode {step_s * 1e3:.3f} "
         f"ms/step over {WARM_STEPS} steps, busy {row['decode_busy']}")
     return row
+
+
+def llava_patch_path(dev, params, cfg, prompts) -> dict:
+    """llava's multimodal prefill: LLAVA_PATCHES random N(0, 0.02) patch
+    embeddings ahead of the text prompts through
+    ``transformer.prefill(patch_emb=)`` into a cache of P + S + LLAVA_GEN
+    slots, then LLAVA_GEN decode steps at positions P + S + i: one
+    flash_attention launch per layer at S = P + S_text, none per decode
+    step, finite logits.  Returns its numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    B, S = prompts.shape
+    P = cfg.n_patches
+    if P != LLAVA_PATCHES or FLASH_LLAVA[3] != P + S:
+        raise RuntimeError(f"{cfg.name}: {P} patches, FLASH_LLAVA "
+                           f"{FLASH_LLAVA}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    patches = 0.02 * torch.randn(B, P, cfg.d_model, device=dev,
+                                 generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = transformer.init_cache(cfg, B, P + S + LLAVA_GEN, dev)
+    cache_gb = sum(t.numel() * t.element_size() for c in cache.values()
+                   for a in c.values() for t in a.values()) / 1e9
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lg, cache = transformer.prefill(params, cfg, prompts, cache,
+                                    patch_emb=patches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    per_prefill = dict(ops.launches)
+    want = expected_launches(flash_attention=cfg.n_layers)
+    ops.reset_launches()
+    tok = lg[:, 0].argmax(-1, keepdim=True)
+    t0 = time.perf_counter()
+    for i in range(LLAVA_GEN):
+        lg_d, cache = transformer.decode_step(params, cfg, cache, tok,
+                                              P + S + i)
+        tok = lg_d[:, 0].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LLAVA_GEN
+    per_steps = {k: n for k, n in ops.launches.items() if n}
+    peak = torch.cuda.max_memory_allocated(dev)
+    pos_map = cache["blocks"]["attn"]["pos_map"][0]
+    log(f"  with {P} patches: cache of {P + S + LLAVA_GEN} slots "
+        f"({cache_gb:.2f} GB), prefill {B}x({P}+{S}) {prefill_s:.3f} s "
+        f"({B * (P + S) / prefill_s:.1f} tokens/s), launches {per_prefill}"
+        f"; {LLAVA_GEN} decode steps at positions {P + S}.."
+        f"{P + S + LLAVA_GEN - 1}"
+        f" (argmax) {step_s * 1e3:.3f} ms/step, launches {per_steps}; "
+        f"memory high-water mark over it {peak / 2**30:.2f} GiB")
+    if per_prefill != want or per_steps:
+        raise RuntimeError(f"{cfg.name} with patches: a prefill launched "
+                           f"{per_prefill} (expected {want}), the decode "
+                           f"steps {per_steps} (expected none)")
+    if not (bool(torch.isfinite(lg).all())
+            and bool(torch.isfinite(lg_d).all())):
+        raise RuntimeError(f"non-finite logits serving {cfg.name} with "
+                           f"patches")
+    if pos_map[:P + S + LLAVA_GEN].tolist() != list(range(P + S + LLAVA_GEN)):
+        raise RuntimeError(f"{cfg.name} with patches: the cache's positions "
+                           f"are not 0..{P + S + LLAVA_GEN - 1}")
+    del cache
+    torch.cuda.empty_cache()
+    return dict(patches=P,
+                flash_launches_per_prefill=per_prefill["flash_attention"],
+                prefill_s=prefill_s,
+                prefill_tokens_per_s=B * (P + S) / prefill_s,
+                decode_ms_per_step=step_s * 1e3, cache_gb=cache_gb,
+                peak_gib=peak / 2 ** 30)
 
 
 def zoo_reduced_against_cpu(dev) -> None:
@@ -2911,13 +3096,19 @@ def zoo_reduced_against_cpu(dev) -> None:
             params["moe_blocks"]["moe"]["router_bias"] = 0.01 * torch.randn(
                 params["moe_blocks"]["moe"]["router_bias"].shape,
                 generator=torch.Generator().manual_seed(1))
-        tokens = torch.randint(0, cfg.vocab, (2, 100),
+        K = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        tokens = torch.randint(0, cfg.vocab, (2, 100, *K),
                                generator=torch.Generator().manual_seed(0))
+        patches = 0.02 * torch.randn(
+            2, cfg.n_patches, cfg.d_model,
+            generator=torch.Generator().manual_seed(1)) \
+            if cfg.n_patches else None
         plain = _prefill_then_decode(params, cfg, tokens, 4,
-                                     torch.device("cpu"))
+                                     torch.device("cpu"), patches)
         ops.reset_launches()
-        card = _prefill_then_decode(_to(params, dev), cfg, tokens.to(dev), 4,
-                                    dev)
+        card = _prefill_then_decode(
+            _to(params, dev), cfg, tokens.to(dev), 4, dev,
+            None if patches is None else patches.to(dev))
         want = zoo_expected(cfg)
         if dict(ops.launches) != want:
             raise RuntimeError(f"{label} reduced: launches {ops.launches}, "
@@ -2926,7 +3117,9 @@ def zoo_reduced_against_cpu(dev) -> None:
         for a, b in zip(card, plain, strict=True):
             worst = max(worst, max_abs_err(a.cpu(), b))
             torch.testing.assert_close(a.cpu(), b, **REDUCED_TOL)
-        log(f"  {label} reduced config in f32 (prefill 96 + 4 decode steps) "
+        with_p = f"{cfg.n_patches} patches + " if cfg.n_patches else ""
+        log(f"  {label} reduced config in f32 (prefill {with_p}96 + 4 decode "
+            f"steps) "
             f"on the card against the CPU: logits max_abs_err {worst:.3e} "
             f"(rtol {REDUCED_TOL['rtol']:g}, atol {REDUCED_TOL['atol']:g}); "
             f"launches {({k: n for k, n in want.items() if n})}")
@@ -2943,6 +3136,188 @@ def zoo_path(dev, planted: dict, card: str) -> list:
     for row in rows:
         log(json.dumps({"serving": row}))
     return rows
+
+
+# -- 9d. LM training ----------------------------------------------------------
+def train_full_width(dev, card) -> dict:
+    """``python -m repro_torch.launch.train --full --arch TRAIN_ARCH`` at its
+    defaults for TRAIN_ROUNDS rounds, through its ``main``: each round
+    launches masked_sgd E x leaves times and no other kernel (the flash and
+    SSD kernels are forward-only; the round aggregates leaf by leaf,
+    agg="tree"), counted around the round calls; the probe loss after each
+    round, a forward under no_grad, launches the SSD kernel once per layer
+    as a prefill does.  Finite probe losses and delta norms, warm rounds/s
+    (the rounds after the first), the memory high-water mark."""
+    from unittest import mock
+
+    from repro_torch.core.fed_step import flatten_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.params import param_count
+    E = 2                                   # the CLI's --local-epochs
+    in_rounds = dict.fromkeys(ops.launches, 0)
+    make_round = train.make_fed_round
+
+    def counted(*args, **kw):
+        round_fn = make_round(*args, **kw)
+
+        def run(*a, **k):
+            before = dict(ops.launches)
+            out = round_fn(*a, **k)
+            for name, n in ops.launches.items():
+                in_rounds[name] += n - before[name]
+            return out
+        return run
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(train, "make_fed_round", counted):
+        out = train.main(["--full", "--arch", TRAIN_ARCH, "--rounds",
+                          str(TRAIN_ROUNDS)])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg = out["cfg"]
+    n_leaves = len(flatten_tree(out["params"]))
+    want_rounds = expected_launches(masked_sgd=TRAIN_ROUNDS * E * n_leaves)
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    want = expected_launches(masked_sgd=TRAIN_ROUNDS * E * n_leaves,
+                             ssd_intra_chunk=TRAIN_ROUNDS * ssd)
+    warm = out["seconds"][1:]
+    rounds_per_s = len(warm) / sum(warm)
+    log(f"training: {cfg.name} at full width ({param_count(out['params']):,}"
+        f" {cfg.dtype} params, {n_leaves} leaves), C 4, E {E}, batch 2, seq "
+        f"128, scheme C, {TRAIN_ROUNDS} rounds in {total_s:.2f} s: launches "
+        f"in the rounds {({k: n for k, n in in_rounds.items() if n})} "
+        f"(expected masked_sgd E x leaves a round, nothing else), in all "
+        f"{({k: n for k, n in launches.items() if n})} (the probes' "
+        f"no-grad forwards add ssd_intra_chunk {ssd} each); probe losses "
+        f"{[round(x, 4) for x in out['losses']]}, |delta| "
+        f"{[f'{x:.3e}' for x in out['delta_norms']]}; round seconds "
+        f"{[round(x, 3) for x in out['seconds']]}, warm {rounds_per_s:.3f} "
+        f"rounds/s; memory high-water mark {peak / 2**30:.2f} GiB")
+    if in_rounds != want_rounds or launches != want:
+        raise RuntimeError(f"training launches {in_rounds} in the rounds, "
+                           f"{launches} in all; expected {want_rounds}, "
+                           f"{want}")
+    if not (np.isfinite(out["losses"]).all()
+            and np.isfinite(out["delta_norms"]).all()
+            and min(out["delta_norms"]) > 0):
+        raise RuntimeError(f"training losses {out['losses']}, delta norms "
+                           f"{out['delta_norms']}")
+    del out
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_ARCH, rounds=TRAIN_ROUNDS, leaves=n_leaves,
+                masked_sgd_per_round=in_rounds["masked_sgd"] // TRAIN_ROUNDS,
+                warm_rounds_per_s=rounds_per_s, peak_gib=peak / 2 ** 30,
+                card=card)
+
+
+def delta_gap(got, want, w0, rounds: int):
+    """A leaf's new value against another's, both from w0: the norm of
+    their difference; of what is left of it once the elements at most
+    ``rounds`` ulps apart are set aside, where they are at most
+    TRAIN_FLIP_SHARE of the leaf; the share of such elements; and the norm
+    of want's delta (see TRAIN_DELTA_TOL)."""
+    diff = got.float() - want.float()
+    top = torch.maximum(got.float().abs(), want.float().abs())
+    flips = (diff != 0) & (diff.abs() <= rounds * (
+        torch.nextafter(top, torch.tensor(float("inf"))) - top))
+    share = flips.float().mean().item()
+    kept = diff.masked_fill(flips, 0.0) if share <= TRAIN_FLIP_SHARE else diff
+    return (diff.norm().item(), kept.norm().item(), share,
+            (want.float() - w0.float()).norm().item())
+
+
+def train_reduced_against_cpu(dev) -> float:
+    """One client-parallel round of each TRAIN_REDUCED config in f32, on the
+    card and on the CPU, from the same params (the port's init, seed 0),
+    masks (one step masked, one client dark), scheme C coefficients and
+    batches (``launch.train.round_batches``): masked_sgd E x leaves launches
+    on the card and no other kernel, every leaf's delta within
+    TRAIN_DELTA_TOL of its norm (after TRAIN_FLIP_SHARE).  Returns the
+    largest raw ratio."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aggregation import scheme_coefficients
+    from repro_torch.core.fed_step import (flatten_tree, make_fed_round,
+                                           per_client_loss)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import round_batches
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    C, E = TRAIN_SHAPE["n_clients"], TRAIN_SHAPE["local_epochs"]
+    alpha = torch.tensor([[1, 1], [1, 0], [0, 0], [1, 1]],
+                         dtype=torch.float32)
+    coeffs = scheme_coefficients("C", torch.full((C,), 1.0 / C),
+                                 alpha.sum(1), E)
+    worst_raw = 0.0
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch).reduced()
+        start = init_params(cfg, seed=0, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in round_batches(
+            np.random.default_rng(1), cfg, 0, **TRAIN_SHAPE).items()}
+        round_fn = make_fed_round(per_client_loss(
+            lambda p, b: transformer.train_loss(p, cfg, b)),
+            "client_parallel")
+        runs = {}
+        for where in ("cpu", "card"):
+            d = torch.device("cpu") if where == "cpu" else dev
+            flat = {k: v.clone().to(d) for k, v in
+                    flatten_tree(start).items()}
+            ops.reset_launches()
+            _, m = round_fn(flat, _to(batch, d), alpha.to(d), coeffs.to(d),
+                            torch.tensor(0.05, device=d), with_metrics=True)
+            runs[where] = (flat, float(m["delta_norm"]), dict(ops.launches))
+        want = expected_launches(masked_sgd=E * len(runs["card"][0]))
+        if runs["card"][2] != want:
+            raise RuntimeError(f"{arch} reduced training round: launches "
+                               f"{runs['card'][2]}, expected {want}")
+        w0 = flatten_tree(start)
+        rows, bad, zero = [], [], []
+        top = max((runs["cpu"][0][n] - w).float().norm().item()
+                  for n, w in w0.items())
+        for name, w in w0.items():
+            card_w = runs["card"][0][name].cpu()
+            raw, past, share, norm = delta_gap(
+                card_w, runs["cpu"][0][name], w, E + 1)
+            if name.endswith(TRAIN_ZERO_GRAD) and cfg.pos_emb != "rope":
+                noise = max(norm, (card_w - w).float().norm().item())
+                zero.append(f"{name} {noise:.2e}")
+                if noise > TRAIN_ZERO_TOL * top:
+                    bad.append((name, "zero-gradient leaf moved", noise, top))
+                continue
+            ratio = raw / norm if norm else 0.0
+            rows.append((ratio, name, share))
+            if past > TRAIN_DELTA_TOL * norm:
+                bad.append((name, raw, past, share, norm))
+        rows.sort(reverse=True)
+        worst_raw = max(worst_raw, rows[0][0])
+        over = [f"{n} {r:.2e} (elements {E + 1} ulps or less apart: "
+                f"{sh:.4f})" for r, n, sh in rows if r > TRAIN_DELTA_TOL]
+        log(f"  {arch} reduced, one round (C {C}, E {E}) in f32 on the card "
+            f"against the CPU: delta_norm {runs['card'][1]:.6e} / "
+            f"{runs['cpu'][1]:.6e}; largest |d_card - d_cpu| / |d| "
+            f"{rows[0][0]:.3e} ({rows[0][1]}); leaves over "
+            f"{TRAIN_DELTA_TOL:g} before the elements an ulp apart at each "
+            f"rounding are set aside: "
+            f"{over or 'none'}; zero-gradient leaves' largest delta "
+            f"{zero or 'none'} (largest leaf delta {top:.3e}); launches "
+            f"{({k: n for k, n in want.items() if n})}")
+        if bad:
+            raise RuntimeError(f"{arch}: leaves outside TRAIN_DELTA_TOL "
+                               f"(name, raw, kept, share set aside or not, "
+                               f"norm): {bad}")
+    return worst_raw
+
+
+def train_path(dev, card) -> dict:
+    row = train_full_width(dev, card)
+    row["reduced_worst_delta_ratio"] = train_reduced_against_cpu(dev)
+    log(json.dumps({"training": row}))
+    return row
 
 
 # -- 10. checkpoint and resume -------------------------------------------------
@@ -4691,6 +5066,14 @@ def time_ssd_head_blocks(dev) -> None:
                 f"{ms:.4f} ms" for h, ms in times.items()))
 
 
+def phase(label: str, fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds logged under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     import_port()
     if not torch.cuda.is_available():
@@ -4749,46 +5132,63 @@ def main() -> None:
                                sorted(init_small(cfg, device=dev).items())}
                     for cfg in (SYNTHETIC_LR, MNIST_MLP, EMNIST_CNN)}
     agg_err = check_weighted_agg(dev, D)
-    sgd_err = check_masked_sgd(dev, leaves, paper_leaves)
-    flash_err = check_flash_attention(dev, planted)
+    sgd_err = check_masked_sgd(dev, leaves, paper_leaves,
+                               lm_leaves(dev, TRAIN_ARCH))
+    flash_err = phase("3 flash_attention", check_flash_attention, dev,
+                      planted)
     quant_err = check_weighted_agg_quant(dev, D, planted_quant, planted_ring)
     check_quant_memory(dev, D)
-    ssd_err = check_ssd_intra_chunk(dev, planted_ssd, planted_ssd_head)
+    ssd_err = phase("3 ssd_intra_chunk", check_ssd_intra_chunk, dev,
+                    planted_ssd, planted_ssd_head)
 
-    f32_trainer, launches, f32_profile, f32_params = main_path(dev)
-    device_path(dev, f32_trainer, len(leaves), f32_profile)
-    int8_trainer, int8_launches, int8_params = compressed_path(
-        dev, f32_trainer, len(leaves), f32_profile)
-    sharded_launches, sharded_errs, sharded_t = sharded_path(
-        dev, f32_trainer, f32_params, int8_trainer, int8_params, len(leaves),
-        D)
+    f32_trainer, launches, f32_profile, f32_params = phase(
+        "4 main path", main_path, dev)
+    phase("5 device mode", device_path, dev, f32_trainer, len(leaves),
+          f32_profile)
+    int8_trainer, int8_launches, int8_params = phase(
+        "6 compressed", compressed_path, dev, f32_trainer, len(leaves),
+        f32_profile)
+    sharded_launches, sharded_errs, sharded_t = phase(
+        "7 sharded", sharded_path, dev, f32_trainer, f32_params,
+        int8_trainer, int8_params, len(leaves), D)
     del f32_trainer
-    wires_against_cpu(dev, int8_trainer.params)
+    phase("6 wires against the CPU", wires_against_cpu, dev,
+          int8_trainer.params)
     del int8_trainer
-    paper_path(dev, len(leaves), D)
-    serve_launches = serve_path(dev, planted)
-    ssm_launches = ssm_serve_path(dev, planted_ssd)
-    zoo_rows = zoo_path(dev, {"flash_attention": planted,
-                              "ssd_intra_chunk": planted_ssd}, card)
-    checkpoint_path(dev, len(leaves), card)
-    uncut = scenario_path(dev, card)
-    bank_path(dev, card, len(leaves), uncut)
-    service_path(dev, card, len(leaves))
-    fuzz_path(dev, card)
+    phase("8 paper", paper_path, dev, len(leaves), D)
+    serve_launches = phase("9 nemotron", serve_path, dev, planted)
+    ssm_launches = phase("9b mamba2", ssm_serve_path, dev, planted_ssd)
+    zoo_rows = phase("9c zoo", zoo_path, dev,
+                     {"flash_attention": planted,
+                      "ssd_intra_chunk": planted_ssd}, card)
+    train_row = phase("9d training", train_path, dev, card)
+    phase("10 checkpoint", checkpoint_path, dev, len(leaves), card)
+    uncut = phase("11 scenarios", scenario_path, dev, card)
+    phase("12 bank", bank_path, dev, card, len(leaves), uncut)
+    phase("13 service", service_path, dev, card, len(leaves))
+    phase("14 fuzz", fuzz_path, dev, card)
 
     log("timing on the card:")
     agg_t = time_weighted_agg(dev, D)
     sgd_t = time_masked_sgd(dev, leaves)
     flash_t = time_flash_attention(dev)
     flash_gemma_t = time_flash_attention(dev, FLASH_GEMMA)
+    flash_llava_t = time_flash_attention(dev, FLASH_LLAVA)
+    flash_musicgen_t = time_flash_attention(dev, FLASH_MUSICGEN)
     quant_t = time_weighted_agg_quant(dev, D)
     ssd_t = time_ssd_intra_chunk(dev)
     ssd_hymba_t = time_ssd_intra_chunk(dev, SSD_HYMBA[0])
 
     def by_path(kernel):
         """Each zoo path's launches of the kernel per prefill."""
-        return {r["arch"]: r["launches_per_prefill"][kernel]
-                for r in zoo_rows if kernel in r["launches_per_prefill"]}
+        paths = {r["arch"]: r["launches_per_prefill"][kernel]
+                 for r in zoo_rows if kernel in r["launches_per_prefill"]}
+        for r in zoo_rows:
+            if kernel == "flash_attention" and "with_patches" in r:
+                p = r["with_patches"]
+                paths[f"{r['arch']} with {p['patches']} patches"] = \
+                    p["flash_launches_per_prefill"]
+        return paths
     time_ssd_head_blocks(dev)
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
@@ -4817,7 +5217,9 @@ def main() -> None:
                  sharded_t["weighted_agg_quant_sharded"])),
         dict(name="masked_sgd", route="cuda", source=f"{csrc}/masked_sgd.cu",
              replaces="src/repro/kernels/masked_sgd.py:26",
-             launches=launches["masked_sgd"], max_abs_err=sgd_err, **sgd_t),
+             launches=launches["masked_sgd"], max_abs_err=sgd_err, **sgd_t,
+             other_paths={f"train {train_row['arch']} (a round)":
+                          train_row["masked_sgd_per_round"]}),
         dict(name="flash_attention", route="cuda",
              source=f"{csrc}/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:64",
@@ -4825,7 +5227,11 @@ def main() -> None:
              max_abs_err=flash_err, **flash_t,
              other_paths=by_path("flash_attention"),
              other_shapes=[dict(q_k_v=list(FLASH_GEMMA), dtype="bf16",
-                                causal=True, **flash_gemma_t)]),
+                                causal=True, **flash_gemma_t),
+                           dict(q_k_v=list(FLASH_LLAVA), dtype="bf16",
+                                causal=True, **flash_llava_t),
+                           dict(q_k_v=list(FLASH_MUSICGEN), dtype="bf16",
+                                causal=True, **flash_musicgen_t)]),
         dict(name="ssd_intra_chunk", route="cuda",
              source=f"{csrc}/ssd_intra_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:43",

@@ -6,9 +6,8 @@ defaults; ``reduced()`` is the reference's derivation of the CPU smoke-test
 variant (2 layers, d_model <= 256, <= 4 experts).  The reference's
 ``remat``, ``seq_parallel``, ``remat_attention`` and ``expand_gqa`` steer
 jax's rematerialisation and GSPMD's sharding; the port keeps them for
-parity and reads none of them.  ``get_config`` knows the architectures the
-port runs (``PORTED_IDS``); the multimodal and audio ones come with a
-later slice.
+parity and reads none of them.  ``get_config`` knows every architecture
+of ``ARCH_IDS``, all of which the port runs (``PORTED_IDS``).
 """
 from __future__ import annotations
 
@@ -223,26 +222,17 @@ ARCH_IDS = [
 
 PAPER_IDS = ["mnist_mlp", "emnist_cnn", "synthetic_lr"]
 
-# the architectures the port runs: every one of ARCH_IDS but the multimodal
-# llava-next-34b and the audio musicgen-medium, which come with a later slice
-PORTED_IDS = ["nemotron-4-15b", "mamba2-130m", "starcoder2-3b", "gemma-7b",
-              "command-r-plus-104b", "hymba-1.5b", "deepseek-v2-lite-16b",
-              "deepseek-v3-671b"]
+# the architectures the port runs: all of them
+PORTED_IDS = list(ARCH_IDS)
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    """The ``CONFIG`` of ``repro_torch/configs/<arch_id>.py``, for the
-    architectures in ``PORTED_IDS``."""
-    if arch_id not in PORTED_IDS:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet (ported: {PORTED_IDS}); the "
-            f"multimodal and audio families come with later slices")
+    """The ``CONFIG`` of ``repro_torch/configs/<arch_id>.py``."""
     mod = importlib.import_module(
         f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG
 
 
 def all_configs() -> dict:
-    """Every ported architecture's config, by id (the reference's covers
-    all of ``ARCH_IDS``)."""
-    return {a: get_config(a) for a in PORTED_IDS}
+    """Every architecture's config, by id."""
+    return {a: get_config(a) for a in ARCH_IDS}

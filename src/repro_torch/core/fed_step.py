@@ -13,6 +13,13 @@ the global params, the accumulator and one client's delta exist at once.
 Local updates are vanilla SGD (the paper's optimizer) with the staircase
 learning rate supplied per round; each step is masked by alpha[c, e] in
 {0, 1}, so s_tau^k = sum_e alpha[c, e].
+
+The round takes a flat dict of leaves and a loss that returns per-client
+losses.  A model whose parameters are a nested tree (the LMs) goes through
+``flatten_tree`` (its leaves keyed by path, so that ``sorted`` visits them
+in jax's leaf order) and ``per_client_loss`` (a one-client loss over the
+tree made into the round's (C,) loss); the flat dict's tensors are the
+tree's, so the round's in-place update lands in the tree.
 """
 from __future__ import annotations
 
@@ -31,6 +38,61 @@ from repro_torch.core.compression import (resolve_compression,
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
+
+
+def flatten_tree(tree) -> Params:
+    """A nested dict of tensors -> a flat dict of the same tensors keyed by
+    their "/"-joined paths, in jax's leaf order (sorted keys at every
+    level), which ``sorted`` of the keys keeps: every key's characters sort
+    after "/"."""
+    flat = {}
+
+    def walk(t, prefix):
+        for k in sorted(t):
+            if isinstance(t[k], dict):
+                walk(t[k], f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = t[k]
+    walk(tree, "")
+    if list(flat) != sorted(flat):
+        raise ValueError("a key of the tree sorts before '/': its leaves' "
+                         "paths would not keep jax's order")
+    return flat
+
+
+def unflatten_tree(flat: Params) -> dict:
+    """``flatten_tree``'s inverse."""
+    tree = {}
+    for path, leaf in flat.items():
+        *outer, last = path.split("/")
+        node = tree
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def per_client_loss(loss_fn: Callable) -> Callable:
+    """loss_fn(tree, batch) -> scalar, one client's loss over a nested
+    parameter tree -> the round's loss(leaves, batches) -> (C,) over
+    ``flatten_tree``'s leaves and batches with a leading client axis.
+
+    The clients run one after another (each through ``unbind`` views of
+    the stacked leaves, one backward node per leaf), the written-out form
+    of the reference's ``vmap`` of its per-client loss: the LM forward
+    (the MoE's sort-and-scatter dispatch into a fresh buffer, the cache
+    code's in-place writes) is not written for ``torch.func.vmap``, and one
+    client at a time does each client's arithmetic exactly as alone."""
+    def loss(leaves: Params, batches) -> torch.Tensor:
+        names = list(leaves)
+        cols = [leaves[name].unbind(0) for name in names]
+        rows = {k: b.unbind(0) for k, b in batches.items()}
+        return torch.stack([
+            loss_fn(unflatten_tree({name: col[c]
+                                    for name, col in zip(names, cols)}),
+                    {k: r[c] for k, r in rows.items()})
+            for c in range(len(cols[0]))])
+    return loss
 
 
 def local_sgd(loss_fn: Callable, params: Params, batches, alpha: torch.Tensor,
@@ -56,8 +118,12 @@ def local_sgd(loss_fn: Callable, params: Params, batches, alpha: torch.Tensor,
             leaves = {name: w[name].detach().requires_grad_()
                       for name in names}
             loss = loss_fn(leaves, {k: b[:, e] for k, b in batches.items()})
+            # a leaf the loss does not reach (the sigmoid router's bias,
+            # read only through top-k's indices) takes a zero gradient, as
+            # in jax
             grads = torch.autograd.grad(loss.sum(),
-                                        [leaves[name] for name in names])
+                                        [leaves[name] for name in names],
+                                        materialize_grads=True)
         # (eta * a) * g, the reference's order of operations
         scale = eta * alpha[:, e]
         for name, g in zip(names, grads):

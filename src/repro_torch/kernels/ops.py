@@ -20,6 +20,13 @@ holds the kernel there to that rounding's own bound.  The sharded forms'
 entries are the reference's gate for its psum epilogue against the
 single-device reduction, max abs error below 1e-4
 (``tests/_sharded_check.py:74``).
+
+``flash_attention`` and ``ssd_intra_chunk`` are forward-only, as the
+reference's kernels are: their outputs carry no gradient, so each wrapper
+raises, on the card and on the CPU alike, when grad mode is on and an input
+requires grad (``taking_grad``), rather than hand back a tensor that would
+silently cut its term out of a backward pass.  The models' training path
+takes the differentiable plain forms instead, as the reference's does.
 """
 from __future__ import annotations
 
@@ -58,6 +65,20 @@ TOLERANCE = {
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def taking_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record a function of ``tensors``: grad mode
+    on and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    if taking_grad(*tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (its kernel has no backward): call it "
+            f"under torch.no_grad() or on tensors that require no grad; "
+            f"training takes the differentiable plain path")
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
@@ -140,8 +161,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of KV (query head h reads KV head h // (H / KV)), hd 32, 64, 128 or
     256 ->
     (B, H, S, hd) softmax attention in q's dtype, scaled by 1/sqrt(hd),
-    causal unless asked otherwise."""
+    causal unless asked otherwise.  Raises under grad (forward-only)."""
     _flash.check_args(q, k, v)
+    _forward_only("flash_attention", q, k, v)
     if not _on_card(q, "flash_attention"):
         return _flash.flash_attention_plain(q, k, v, causal)
     out = _flash.launch(q, k, v, causal)
@@ -155,8 +177,10 @@ def ssd_intra_chunk(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
     (G, Q, P) f32: per cell ((C B^T) * L) xdt with L[i, j] = exp(cum[i] -
     cum[j]) for j <= i, else 0 (the SSD intra-chunk term).  The cells may
     also come as (Go, Gi), e.g. C and B expanded over the heads of a group
-    with stride 0; the output is then (Go, Gi, Q, P)."""
+    with stride 0; the output is then (Go, Gi, Q, P).  Raises under grad
+    (forward-only)."""
     _ssd.check_args(cum, C, B, xdt)
+    _forward_only("ssd_intra_chunk", cum, C, B, xdt)
     if not _on_card(C, "ssd_intra_chunk"):
         return _ssd.ssd_intra_chunk_plain(cum, C, B, xdt)
     out = _ssd.launch(cum, C, B, xdt)

@@ -82,12 +82,15 @@ def ssd_intra_chunk_plain(cum: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
                           xdt: torch.Tensor) -> torch.Tensor:
     """The reference's oracle (``repro/kernels/ref.py:29``) in plain
     PyTorch, for any leading cell dims: everything in f32, the decay taken
-    where j <= i and 0 above the diagonal."""
+    where j <= i and 0 above the diagonal.  The mask comes before the exp
+    (-inf there, so no inf meets a zero cotangent): the function is
+    differentiable, and the SSD mixer takes it when gradients are being
+    taken."""
     cum = cum.float()
     Q = cum.shape[-1]
     diff = cum[..., :, None] - cum[..., None, :]
     mask = torch.ones(Q, Q, dtype=torch.bool, device=cum.device).tril()
-    L = torch.where(mask, torch.exp(diff), 0.0)
+    L = torch.exp(torch.where(mask, diff, -torch.inf))
     s = torch.einsum("...qn,...sn->...qs", C.float(), B.float()) * L
     return torch.einsum("...qs,...sp->...qp", s, xdt.float())
 

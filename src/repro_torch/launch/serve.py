@@ -5,17 +5,21 @@ step by step against the cache (KV or SSM state); counterpart of
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --batch 4 --prompt-len 4096 --gen 32                         # the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
-      --full --batch 4 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \\
+      --device cpu
 
-``--arch`` takes the architectures the port runs
-(``repro_torch.configs.PORTED_IDS``): the dense nemotron-4-15b,
+``--arch`` takes every architecture of ``repro_torch.configs.ARCH_IDS``,
+mamba2-130m by default, as the reference's: the dense nemotron-4-15b,
 starcoder2-3b, gemma-7b and command-r-plus-104b, the Mamba2 SSD
 mamba2-130m, the hybrid hymba-1.5b (attention and SSD heads side by side;
-the SSD prefill runs the ssd_intra_chunk kernel), and the MLA + MoE
-deepseek-v2-lite-16b and deepseek-v3-671b.  ``--full`` draws the registered
-config at full width: command-r-plus-104b (208 GB in bf16) and
-deepseek-v3-671b (1.34 TB) do not fit one card that way.
+the SSD prefill runs the ssd_intra_chunk kernel), the MLA + MoE
+deepseek-v2-lite-16b and deepseek-v3-671b, the multimodal backbone
+llava-next-34b (served on text prompts, as the reference serves it: its
+patch embeddings go through ``transformer.prefill(patch_emb=)``) and the
+audio musicgen-medium, whose prompts and sampled tokens carry its K
+codebooks, (B, S, K).  ``--full`` draws the registered config at full
+width: command-r-plus-104b (208 GB in bf16) and deepseek-v3-671b (1.34 TB)
+do not fit one card that way.
 
 Runs on the CUDA device unless ``--device cpu`` is given.  Weights are
 random, drawn from ``--seed``; so are the prompts and the sampled tokens
@@ -30,7 +34,7 @@ import time
 
 import torch
 
-from repro_torch.configs.base import PORTED_IDS, ArchConfig, get_config
+from repro_torch.configs.base import ARCH_IDS, ArchConfig, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.params import init_params, param_count
@@ -43,9 +47,13 @@ def _sync(device: torch.device) -> None:
 
 def sample(logits: torch.Tensor, temperature: float,
            gen: torch.Generator) -> torch.Tensor:
-    """One categorical draw per row of logits (B, 1, V) -> (B, 1) ids."""
+    """One categorical draw per row of logits: (B, 1, V) -> (B, 1) ids, or
+    (B, 1, K, V) -> (B, 1, K), one draw per codebook."""
     probs = torch.softmax(logits[:, 0] / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)
+    # torch.multinomial takes at most 2-D input
+    ids = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                            generator=gen)
+    return ids.reshape(logits.shape[0], 1, *logits.shape[2:-1])
 
 
 def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
@@ -54,8 +62,10 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
     decode ``gen`` tokens one step at a time, sampling each from the
     previous step's logits.  ``params`` defaults to ``init_params(cfg,
-    seed=seed)``.  Returns the prompts, the prefill's last-position logits,
-    the sampled ids (B, gen), the last step's logits, the cache, and the
+    seed=seed)``.  Prompts and ids carry the codebooks of an audio config,
+    (B, S, K) and (B, gen, K).  Returns the prompts, the prefill's
+    last-position logits, the sampled ids (B, gen[, K]), the last step's
+    logits, the cache, and the
     prefill's and the decode loop's wall seconds (the card synchronised at
     both ends of each)."""
     device = resolve_device(device)
@@ -63,7 +73,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
         params = init_params(cfg, seed=seed, device=device)
     rng = torch.Generator(device=device).manual_seed(seed)
     B, S = batch, prompt_len
-    prompts = torch.randint(0, cfg.vocab, (B, S), generator=rng,
+    K = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompts = torch.randint(0, cfg.vocab, (B, S, *K), generator=rng,
                             device=device)
 
     _sync(device)
@@ -91,9 +102,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="nemotron-4-15b", choices=PORTED_IDS,
-                    help="an architecture the port runs: "
-                         + ", ".join(PORTED_IDS))
+    ap.add_argument("--arch", default="mamba2-130m", choices=ARCH_IDS,
+                    help="an architecture: " + ", ".join(ARCH_IDS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
@@ -121,7 +131,8 @@ def main(argv=None):
     if args.gen:
         print(f"decode: {toks} tokens in {dt:.2f}s "
               f"({toks / dt:.1f} tok/s, {dt / args.gen * 1e3:.1f} ms/step)")
-        print("sample token ids (seq 0):", out["tokens"][0, :16].tolist())
+        print("sample token ids (seq 0):",
+              out["tokens"][0].reshape(args.gen, -1)[:16, 0].tolist())
     if device.type == "cuda":
         print(f"device memory high-water mark: "
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")

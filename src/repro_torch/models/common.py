@@ -1,9 +1,11 @@
 """Shared model building blocks: norms, activations and the dense MLP,
-counterpart of ``repro/models/common.py`` (the forward pass).
+counterpart of ``repro/models/common.py``.
 
 Norm scales are stored as offsets from one, ``y * (1 + scale)``, and
 initialised to zero, as in the reference.  Statistics are taken in f32 and
-the result is cast back to the input's dtype.
+the result is cast back to the input's dtype.  ``rmsnorm`` carries the
+reference's hand-written backward (its ``custom_vjp``); the other pieces
+take autograd's, which follows the same casts as jax's.
 """
 from __future__ import annotations
 
@@ -11,11 +13,31 @@ import torch
 import torch.nn.functional as F
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The reference's ``custom_vjp``: f32 math inside, the saved input and
+    the returned ``dx`` in x's dtype, ``dscale`` in scale's."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        x32 = x.float()
+        rstd = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, rstd)
+        return (x32 * rstd * (1.0 + scale.float())).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, rstd = ctx.saved_tensors
+        x32, dy32 = x.float(), dy.float()
+        xhat = x32 * rstd
+        g = dy32 * (1.0 + scale.float())
+        dscale = (dy32 * xhat).reshape(-1, dy.shape[-1]).sum(0)
+        dx = rstd * (g - xhat * (g * xhat).mean(-1, keepdim=True))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    rstd = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
-    return (x32 * rstd * (1.0 + scale.float())).to(x.dtype)
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias=None,

@@ -1,7 +1,9 @@
 """LM parameter initialisation, counterpart of ``repro/models/params.py``
-for the dense (GQA or MLA attention), MoE, SSM and hybrid families, the
-multi-token-prediction subtree included: the tree is the reference's key
-for key, shape for shape and dtype for dtype.
+for every family: dense (GQA or MLA attention), MoE, SSM, hybrid, the
+multimodal backbone (dense blocks; its patch embeddings come with the
+batch) and audio (K codebooks: a (K, Vp, d) embedding and a (K, d, Vp)
+head), the multi-token-prediction subtree included: the tree is the
+reference's key for key, shape for shape and dtype for dtype.
 
 Per-layer parameters are stacked with a leading (n_layers,) dim, as the
 reference stacks them for ``lax.scan``; head-structured projections are
@@ -48,16 +50,6 @@ def block_kinds(cfg: ArchConfig):
     return [("blocks", "dense", cfg.n_layers)]
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raises for what the port does not run yet: the multimodal (vlm) and
-    audio families."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            f"port runs the dense, moe, ssm and hybrid families, the "
-            f"multimodal and audio ones come with later slices")
-
-
 def _ssm_init(H: int):
     """The reference's ``A_log`` and ``dt_bias`` init, (H,) f32 on the CPU:
     A = U(1, 16) and dt = exp(U(log 1e-3, log 1e-1)) clipped at 1e-4 from
@@ -76,7 +68,6 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device=None) -> Dict[str, object]:
     """Fresh parameters in the reference's layout on ``device`` (the CUDA
     device unless the CPU is asked for)."""
-    check_ported(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -95,12 +86,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
         return p
 
     draw = (dense, zeros, norm, device)
-    params = {"embed": dense(cfg.vocab_padded, cfg.d_model)}
+    K = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    params = {"embed": dense(*K, cfg.vocab_padded, cfg.d_model)}
     for name, kind, L in block_kinds(cfg):
         params[name] = _block_params(cfg, kind, (L,), draw)
     params["final_norm"] = norm()
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense(cfg.d_model, cfg.vocab_padded)
+        params["lm_head"] = dense(*K, cfg.d_model, cfg.vocab_padded)
     if cfg.mtp_depth:
         params["mtp"] = {
             "mtp_proj": dense(2 * cfg.d_model, cfg.d_model),

@@ -5,6 +5,12 @@ Prefill runs the chunked scan: within each chunk the quadratic "attention
 dual" term, computed by the ``ssd_intra_chunk`` kernel (one launch per
 call), and across chunks the recurrence over running states, which the
 reference writes as a ``lax.scan`` and the port as a loop over the chunks.
+The kernel is forward-only, so when gradients are being taken (grad mode
+on and an input of the term requiring grad: a training step) the term is
+the kernel's plain version ``ssd_intra_chunk_plain``, the reference
+model's own differentiable einsum over ``exp(segsum)``, and the kernel is
+not launched; the reference's training never runs its Pallas kernel
+either.
 Decode is the O(1) recurrence.  The reference's ``safe_concat`` (a GSPMD
 workaround) is a plain ``torch.cat`` here.  With a cache, the mixer writes
 the new conv inputs and state into the cache's tensors in place, as the
@@ -16,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ssd_chunk import ssd_intra_chunk_plain
 from repro_torch.models.common import rmsnorm
 
 
@@ -40,7 +47,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, *, intra=None):
     h0: (Bb, G, hg, P, N) optional initial state
     intra: the intra-chunk term, ``ops.ssd_intra_chunk``'s signature with
            the cells as (batch * chunks * groups, heads per group); by
-           default ``ops.ssd_intra_chunk``, looked up at the call
+           default ``ops.ssd_intra_chunk``, looked up at the call, or
+           ``ssd_intra_chunk_plain`` when gradients are being taken
     Returns (y: (Bb,S,H,P), h_last: (Bb,G,hg,P,N) f32).
     """
     Bb, S, H, Pd = x.shape
@@ -65,11 +73,15 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, *, intra=None):
     # (batch, chunk, group, head); the group's B and C rows are read by its
     # heads through a stride-0 dim, xdt and the output through strides
     cells = Bb * nc * G
-    y_intra = (intra or kops.ssd_intra_chunk)(
+    terms = (
         dA_cs.reshape(cells, hg, Q),
         Cr.permute(0, 1, 3, 2, 4).reshape(cells, 1, Q, N).expand(-1, hg, Q, N),
         Br.permute(0, 1, 3, 2, 4).reshape(cells, 1, Q, N).expand(-1, hg, Q, N),
         xdt.permute(0, 1, 3, 4, 2, 5).reshape(cells, hg, Q, Pd))
+    if intra is None:
+        intra = ssd_intra_chunk_plain if kops.taking_grad(*terms) \
+            else kops.ssd_intra_chunk
+    y_intra = intra(*terms)
     y_intra = y_intra.reshape(Bb, nc, G, hg, Q, Pd).permute(0, 1, 4, 2, 3, 5)
 
     # chunk-final states

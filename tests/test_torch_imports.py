@@ -35,7 +35,11 @@ for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
              "repro_torch.obs.telemetry", "repro_torch.obs.fedmetrics",
              "repro_torch.fed.faults", "repro_torch.fed.service",
              "repro_torch.launch.fed_serve", "repro_torch.launch.fed_top",
-             "repro_torch.fed.fuzz", "repro_torch.fed.validate"):
+             "repro_torch.fed.fuzz", "repro_torch.fed.validate",
+             "repro_torch.data.tokens", "repro_torch.optim",
+             "repro_torch.optim.sgd", "repro_torch.launch.train",
+             "repro_torch.configs.llava_next_34b",
+             "repro_torch.configs.musicgen_medium"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -120,6 +124,9 @@ def test_serving_entry_points_refuse_to_run_without_cuda(monkeypatch):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         transformer.init_cache(cfg, 1, 8)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--rounds", "1"])
 
 
 def test_streaming_entry_points_refuse_to_run_without_cuda(monkeypatch):

@@ -20,7 +20,7 @@ from repro.models import mla as jmla
 from repro.models import moe as jmoe
 from repro.models import transformer as jtransformer
 from repro.models.params import init_params as jinit_params
-from repro_torch.configs import PORTED_IDS, get_config
+from repro_torch.configs import ARCH_IDS, PORTED_IDS, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import mla, moe, transformer
@@ -404,7 +404,7 @@ def test_converter_round_trip_and_own_init_tree(arch):
 # -- configs and the serving entry point ----------------------------------------
 
 def test_every_ported_id_serves_at_its_reduced_config():
-    assert len(PORTED_IDS) == 8 and set(NEW_ARCHS) < set(PORTED_IDS)
+    assert PORTED_IDS == ARCH_IDS and set(NEW_ARCHS) < set(PORTED_IDS)
     for arch in NEW_ARCHS:
         cfg = get_config(arch).reduced()
         out = serve_mod.serve(cfg, batch=1, prompt_len=8, gen=1, seed=0,
