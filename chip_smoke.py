@@ -3,7 +3,8 @@
 round in plan and device mode, the compressed federated round, the client-sharded round, the
 paper's experiments with the client-sequential round, LM serving,
 Mamba2 SSD serving, the LM zoo's dense, hybrid, MLA + MoE, multimodal and
-audio serving, federated LM training, the
+audio serving, federated LM training (the seed host loop and through
+the device-resident engine), the
 streamed federation's checkpoint and resume, the
 streaming scenario library through its CLI, the tiered client bank
 with its cohort prefetch and the telemetry, the live federation
@@ -153,7 +154,23 @@ it, and nothing of JAX or of the JAX package.  In order it
    leaves launches a round and no other kernel inside the rounds, finite
    probe losses, warm rounds/s, memory), then one round of each family's
    reduced representative in f32 on the card against the CPU (each leaf's
-   delta within TRAIN_DELTA_TOL of its norm, see TRAIN_FLIP_SHARE);
+   delta within TRAIN_DELTA_TOL of its norm, see TRAIN_FLIP_SHARE); then
+   federated LM training through the engine (9e):
+   ``repro_torch.launch.fed_train``'s main with ``--full --arch
+   mamba2-130m --arrive 1`` for FED_TRAIN_ROUNDS rounds at its other
+   defaults (an LMTask, capacity 6, device-mode draws, the arrival
+   admitted at round 3), on the f32 wire and with ``--compress int8``:
+   inside the spans masked_sgd E x leaves launches a round, weighted_agg
+   once a round (int8: weighted_agg_quant once, weighted_agg never), no
+   flash or SSD kernel, outside them only the probes' ssd_intra_chunk;
+   the arrival applied, finite probe losses, warm rounds/s, the memory
+   high-water mark and a profiled round's kernels and busy share; then the
+   reduced config in f32 in each engine mode on the card and the CPU from
+   the same initial params: equal round records (s bit for bit, the
+   events), masked_sgd and weighted_agg once a round (client_sequential:
+   capacity x E x leaves one-row masked_sgd launches a round, no
+   reduction kernel), each leaf's delta over the first span within
+   TRAIN_DELTA_TOL of its norm (after TRAIN_FLIP_SHARE);
 10. drives checkpoint and resume of the streamed federation: a
    ``StreamScheduler`` with ``model_kind="cnn"`` over the main path's
    EMNIST federation (capacity CKPT_CAPACITY), a TraceShift, an
@@ -280,7 +297,8 @@ it, and nothing of JAX or of the JAX package.  In order it
    carries gemma-7b's shape (head dim 256), llava's and musicgen's, and
    ssd_intra_chunk's hymba's cells, under ``other_shapes``, and each the
    zoo paths' launches per prefill under ``other_paths`` (masked_sgd's:
-   the training round's).  ssd_intra_chunk's bound
+   the training round's and fed_train's; weighted_agg's and
+   weighted_agg_quant's: fed_train's a round).  ssd_intra_chunk's bound
    counts the group's scores once per pair, as its inputs need, and the
    per-head reckoning (the scores counted once per head) is printed
    beside it.
@@ -528,6 +546,22 @@ TRAIN_REDUCED = ["nemotron-4-15b", "gemma-7b", "deepseek-v3-671b",
 TRAIN_SHAPE = dict(n_clients=4, local_epochs=2, batch=2, seq=32)
 TRAIN_DELTA_TOL = 1e-4
 TRAIN_FLIP_SHARE = 0.01
+# federated LM training through the engine (9e): launch.fed_train at its
+# defaults with one arrival mid-run (capacity = clients + 2, device-mode
+# draws), at full width and then reduced in f32 on the card and the CPU
+# from the same initial params, once per engine mode; the spans are
+# [0, 1), [1, 3), [3, 4), [4, 5), [5, 6) (the arrival at 3, probes at 0, 3
+# and 4): the first is the warm-up, the last is profiled, the three
+# between are timed
+FED_TRAIN_ROUNDS = 6
+FED_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--arrive", "1", "--quiet"]
+FED_TRAIN_PROFILED_SPAN = 4
+# the full-width run's capacity (its default: 4 clients + 2): the rows of
+# the (capacity, D) reductions and of the masked_sgd launches, at which
+# step 3 holds each kernel against its plain version
+FED_TRAIN_CAPACITY = 6
+FED_TRAIN_MODES = ("client_parallel", "client_sequential")
+FED_TRAIN_REDUCED_ROUNDS = 4
 # a leaf whose exact gradient is zero has a delta of rounding noise alone,
 # which no tolerance relative to itself can hold: the key bias without
 # rotary embeddings (each query's scores shift by one constant, which the
@@ -761,7 +795,7 @@ def lm_leaves(dev, arch: str) -> dict:
 
 
 # -- 3. each kernel against its plain version ---------------------------------
-def check_weighted_agg(dev, D: int) -> float:
+def check_weighted_agg(dev, D: int, lm_D: int) -> float:
     from repro_torch.kernels import ops
     from repro_torch.kernels.weighted_agg import padded, weighted_agg_plain
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -770,13 +804,15 @@ def check_weighted_agg(dev, D: int) -> float:
     # is half pad) and bf16 (D = 6 mod 8); rows of whole vectors with no
     # pad, passed as a plain contiguous tensor; a tail of 3 columns; and
     # K > 64 (the reference's K-tiled layout); then the paper tables'
-    # rounds
+    # rounds; then fed_train's round at full width: TRAIN_ARCH's flat
+    # (capacity, lm_D) f32 buffer, more than 2^31 bytes
     for K, n, dtype in [(N_CLIENTS, D, torch.float32),
                         (N_CLIENTS, D, torch.bfloat16),
                         (N_CLIENTS, D + 2, torch.float32),
                         (N_CLIENTS, D + 1, torch.float32),
                         (100, D, torch.float32)] + [
-                            (K, n, torch.float32) for K, n in TABLE_AGG]:
+                            (K, n, torch.float32) for K, n in TABLE_AGG] + [
+                            (FED_TRAIN_CAPACITY, lm_D, torch.float32)]:
         c = torch.rand(K, device=dev, generator=gen)
         c[::7] = 0.0                          # clients with no work
         d = padded(torch.randn(K, n, device=dev, generator=gen).to(dtype))
@@ -791,6 +827,8 @@ def check_weighted_agg(dev, D: int) -> float:
             f"(rtol {tol['rtol']:g}, atol {tol['atol']:g})")
         torch.testing.assert_close(got, want, **tol)
         worst = max(worst, err)
+        del c, d, got, want
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -826,14 +864,15 @@ def check_masked_sgd(dev, leaves, paper_leaves, train_leaves) -> float:
     # the LM round's launches (step 9d): every leaf of TRAIN_ARCH at full
     # width in its own dtype (bf16; f32 for the norms' scales and the
     # SSM's A_log, D, dt_bias) as (clients, n), compared by the change
-    # w_new - w.
+    # w_new - w, at training's 4 clients and at fed_train's capacity rows.
     # At the round's own scale (eta0 0.05, gradients far below w) the
     # change is below bf16's resolution of w at most elements, so a kernel
     # that dropped it would pass a comparison of w_new: here the gradient
     # is drawn 20x w's scale, so that the change (scale 0.05) is as large
     # as w, and the run fails unless a dropped update would fail
-    C = TRAIN_SHAPE["n_clients"]
-    for name, (n, dtype) in train_leaves.items():
+    for C, (name, (n, dtype)) in itertools.product(
+            (TRAIN_SHAPE["n_clients"], FED_TRAIN_CAPACITY),
+            train_leaves.items()):
         tol = ops.TOLERANCE["masked_sgd"][dtype]
         w = torch.randn(C, n, device=dev, generator=gen).to(dtype)
         g = (20 * torch.randn(C, n, device=dev, generator=gen)).to(dtype)
@@ -976,17 +1015,20 @@ def quantized(dev, gen, K, D, chunk, levels, wider: int = 0):
     return c, payload, scales
 
 
-def check_weighted_agg_quant(dev, D: int, planted, planted_ring) -> float:
-    """The kernel equals its plain version at the int8 wire's shape and
-    at the edge shapes, which between them take every path to the scales
-    and several row boxes a tile; the planted faults must differ: the
-    tile's first chunk at chunk 100, the previous ring place at K > 256 and
-    at the wire's shape."""
+def check_weighted_agg_quant(dev, D: int, lm_D: int, planted,
+                             planted_ring) -> float:
+    """The kernel equals its plain version at the int8 wire's shape, at
+    fed_train's int8 round at full width (TRAIN_ARCH's flat (capacity,
+    lm_D) buffer, QUANT_CHUNK) and at the edge shapes, which between them
+    take every path to the scales and several row boxes a tile; the
+    planted faults must differ: the tile's first chunk at chunk 100, the
+    previous ring place at K > 256 and at both wires' shapes."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import weighted_agg as agg
     gen = torch.Generator(device=dev).manual_seed(6)
     worst, paths, boxes = 0.0, set(), set()
-    for K, n, chunk, levels, wider in [QUANT_MAIN] + QUANT_EDGES:
+    lm = (FED_TRAIN_CAPACITY, lm_D, QUANT_CHUNK, 127, 0)
+    for K, n, chunk, levels, wider in [QUANT_MAIN, lm] + QUANT_EDGES:
         n = n or D
         c, payload, scales = quantized(dev, gen, K, n, chunk, levels, wider)
         plan = agg.quant_plan(payload, scales, chunk)
@@ -1014,12 +1056,14 @@ def check_weighted_agg_quant(dev, D: int, planted, planted_ring) -> float:
         if chunk == 100 and torch.equal(bad, want):
             raise RuntimeError("the check does not see the planted fault "
                                "at chunk 100")
-        if (K > 256 or n == D and K == N_CLIENTS and chunk == QUANT_CHUNK) \
+        if (K > 256 or (K, n, chunk) in ((N_CLIENTS, D, QUANT_CHUNK),
+                                         lm[:3])) \
                 and torch.equal(bad_ring, want):
             raise RuntimeError(f"the check does not see the ring's planted "
                                f"fault at K={K} D={n}")
         worst = max(worst, err)
         del c, payload, scales, got, want, bad, bad_ring
+        torch.cuda.empty_cache()
     log(f"  weighted_agg_quant paths reached: {sorted(paths)}, boxes a "
         f"tile: {sorted(boxes)}")
     if paths != {"staged", "per-code"} or max(boxes) < 2:
@@ -1308,17 +1352,23 @@ def compare_with_plain(card, plain) -> float:
     return worst
 
 
-def profile_card(label: str, fn, baseline=None, stats=None) -> dict:
+def profile_card(label: str, fn, baseline=None, stats=None,
+                 device_only: bool = False) -> dict:
     """Kernel time by name over one call of fn, and the card's busy share:
     the union of kernel intervals over the host's wall time.  Returns
     {name: (us, launches)}; with a ``baseline`` of that form it also prints
     each kernel whose time differs from the baseline's by 50 us or more.
-    A ``stats`` dict receives the busy share and the wall ms."""
+    A ``stats`` dict receives the busy share and the wall ms.
+    ``device_only`` records the card's activity alone, not the host's
+    operators: a call of tens of thousands of operators costs the
+    profiler tens of seconds to read back otherwise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if not device_only:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3320,6 +3370,242 @@ def train_path(dev, card) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def watched_spans(label: str = "", profile_span=None, stats=None):
+    """While it is open, every ``RoundEngine.run_span`` is timed between
+    two synchronisations, with the kernel launches it makes, and the
+    params after the first span are kept (CPU copies); span number
+    ``profile_span`` on the card runs under ``profile_card`` (its busy
+    share into ``stats``, its kernels by name under "profile"); every
+    ``StreamScheduler`` that runs is kept.  Yields {"spans": [(tau,
+    rounds, seconds, launches)], "first": params, "schedulers": [...]}."""
+    from unittest import mock
+
+    from repro_torch.fed.engine import RoundEngine
+    from repro_torch.fed.stream import StreamScheduler
+    from repro_torch.kernels import ops
+    seen = {"spans": [], "first": None, "schedulers": []}
+    run_span, run = RoundEngine.run_span, StreamScheduler.run
+
+    def timed(self, params, tau_start, n_rounds, **kw):
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        before = dict(ops.launches)
+        t0 = time.perf_counter()
+        if cuda and len(seen["spans"]) == profile_span:
+            box = []
+            seen["profile"] = profile_card(label, lambda: box.append(
+                run_span(self, params, tau_start, n_rounds, **kw)),
+                stats=stats, device_only=True)
+            out = box[0]
+        else:
+            out = run_span(self, params, tau_start, n_rounds, **kw)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        seen["spans"].append((tau_start, n_rounds, time.perf_counter() - t0,
+                              {k: n - before[k]
+                               for k, n in ops.launches.items()}))
+        if seen["first"] is None:
+            seen["first"] = {k: v.detach().cpu().clone()
+                             for k, v in out[0].items()}
+        return out
+
+    def kept(self, *args, **kw):
+        seen["schedulers"].append(self)
+        return run(self, *args, **kw)
+    with mock.patch.object(RoundEngine, "run_span", timed), \
+            mock.patch.object(StreamScheduler, "run", kept):
+        yield seen
+
+
+def span_launches(seen) -> dict:
+    """The launches of every kernel summed over the watched spans."""
+    return {k: sum(sp[3][k] for sp in seen["spans"])
+            for k in seen["spans"][0][3]}
+
+
+def fed_train_full_width(dev, card, compress=None) -> dict:
+    """``python -m repro_torch.launch.fed_train --full --arch TRAIN_ARCH
+    --arrive 1`` for FED_TRAIN_ROUNDS rounds at its other defaults (C 4,
+    capacity 6, E 2, batch 2, seq 64, scheme C, device-mode draws, agg
+    "auto" = "flat" on the card), through its ``main``: inside the spans
+    masked_sgd E x leaves launches a round (every capacity row in one
+    launch), weighted_agg once a round (``--compress int8``:
+    weighted_agg_quant once, weighted_agg never) and no flash or SSD
+    kernel (training takes the differentiable paths); outside them only
+    the probes' no-grad forwards, ssd_intra_chunk once per layer each.
+    The arrival applied, finite probe losses; warm rounds/s over the
+    timed spans, the profiled span's busy share, the memory high-water
+    mark.  The last span is profiled (the card's activity alone): the
+    busy share under the profiler and, as the profiler slows the host,
+    its kernel time over the fastest timed one-round span's wall."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_train
+    argv = FED_TRAIN_ARGS + ["--full", "--rounds", str(FED_TRAIN_ROUNDS)]
+    if compress:
+        argv += ["--compress", compress]
+    wire = compress or "f32"
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with watched_spans(f"a fed_train round ({wire})",
+                       FED_TRAIN_PROFILED_SPAN, stats) as seen:
+        out = fed_train.main(argv)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    sch = seen["schedulers"][0]
+    cfg = sch.engine.task.cfg
+    n_leaves, E, R = len(sch.params), sch.E, FED_TRAIN_ROUNDS
+    reduction = "weighted_agg_quant" if compress else "weighted_agg"
+    want = expected_launches(masked_sgd=R * E * n_leaves, **{reduction: R})
+    got = span_launches(seen)
+    losses = [h.loss for h in sch.history if not math.isnan(h.loss)]
+    outside = {k: n - got[k] for k, n in ops.launches.items()}
+    want_outside = expected_launches(
+        ssd_intra_chunk=len(losses) * cfg.n_layers)
+    if not seen.get("profile") or stats.get("busy") is None:
+        raise RuntimeError(f"fed_train ({wire}): the profiled span recorded "
+                           f"no kernel on the card")
+    timed = [sp for i, sp in enumerate(seen["spans"])
+             if 0 < i != FED_TRAIN_PROFILED_SPAN]
+    rounds_per_s = sum(sp[1] for sp in timed) / sum(sp[2] for sp in timed)
+    one_round = min(sp[2] for sp in timed if sp[1] == 1)
+    kernel_s = sum(t for t, _ in seen["profile"].values()) / 1e6
+    busy = dict(profiled=stats["busy"],
+                kernels_over_timed_round=kernel_s / one_round)
+    log(f"fed_train {cfg.name} at full width ({out['params']:,} {cfg.dtype} "
+        f"params, {n_leaves} leaves), {out['mode']}, capacity "
+        f"{out['capacity']}, wire {out['compression']}: {R} rounds in "
+        f"{out['wall_s']:.3f} s ({total_s:.2f} s with the build); spans "
+        f"{[(t, r, round(sec, 3)) for t, r, sec, _ in seen['spans']]}; "
+        f"launches in the spans {({k: n for k, n in got.items() if n})} "
+        f"(expected {({k: n for k, n in want.items() if n})}), outside "
+        f"them {({k: n for k, n in outside.items() if n})} ({len(losses)} "
+        f"probes); events applied {out['events_applied']}; probe losses "
+        f"{[round(x, 4) for x in losses]}; warm {rounds_per_s:.3f} rounds/s "
+        f"(spans 1-3); busy {busy} (under the profiler; its "
+        f"{kernel_s * 1e3:.1f} ms of kernels over the fastest timed round, "
+        f"{one_round:.3f} s); memory high-water mark {peak / 2**30:.2f} "
+        f"GiB; {card}")
+    if got != want or outside != want_outside:
+        raise RuntimeError(f"fed_train ({wire}) launches {got} in the "
+                           f"spans, {outside} outside; expected {want}, "
+                           f"{want_outside}")
+    if out["capacity"] != FED_TRAIN_CAPACITY:
+        raise RuntimeError(f"fed_train's capacity {out['capacity']}: step 3 "
+                           f"checks the kernels at {FED_TRAIN_CAPACITY} rows")
+    if out["events_applied"] != 1 or sch.events_applied != 1:
+        raise RuntimeError(f"fed_train applied {out['events_applied']} "
+                           f"events, expected the one arrival")
+    if not losses or not np.isfinite(losses).all():
+        raise RuntimeError(f"fed_train probe losses {losses}")
+    row = dict(arch=cfg.name, wire=out["compression"], rounds=R,
+               leaves=n_leaves, capacity=out["capacity"],
+               launches_per_round={k: n // R for k, n in got.items() if n},
+               warm_rounds_per_s=rounds_per_s, busy=busy,
+               peak_gib=peak / 2 ** 30, card=card)
+    del out, sch, seen
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def same_initial_params(drawn: list):
+    """LMTask.init_params drawn on the CPU and moved to the device asked
+    for, so the card's run and the CPU's start from the same params; each
+    draw is kept in ``drawn``."""
+    from unittest import mock
+
+    from repro_torch.fed.task import LMTask
+    init = LMTask.init_params
+
+    def on_cpu(self, key, device=None):
+        flat = init(self, key, device="cpu")
+        drawn.append({k: v.clone() for k, v in flat.items()})
+        return {k: v.to(device) for k, v in flat.items()}
+    with mock.patch.object(LMTask, "init_params", on_cpu):
+        yield
+
+
+def fed_train_reduced_against_cpu(dev) -> float:
+    """fed_train on TRAIN_ARCH's reduced config in f32 at its defaults with
+    one arrival, FED_TRAIN_REDUCED_ROUNDS rounds, once per engine mode, on
+    the card and on the CPU from the same initial params: equal round
+    records (s bit for bit, events), the card's launches in the spans
+    (client_parallel: masked_sgd E x leaves and weighted_agg once a round;
+    client_sequential: masked_sgd capacity x E x leaves one-row launches a
+    round and no reduction kernel), and each leaf's delta over the first
+    span within TRAIN_DELTA_TOL of its norm (after TRAIN_FLIP_SHARE).
+    Returns the largest raw ratio."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_train
+    R = FED_TRAIN_REDUCED_ROUNDS
+    worst = 0.0
+    for mode in FED_TRAIN_MODES:
+        argv = FED_TRAIN_ARGS + ["--rounds", str(R), "--mode", mode]
+        runs, drawn = {}, []
+        for where in ("cpu", "card"):
+            ops.reset_launches()
+            with same_initial_params(drawn), watched_spans() as seen:
+                out = fed_train.main(argv + (["--device", "cpu"]
+                                             if where == "cpu" else []))
+            runs[where] = (out, seen)
+        sch = {w: runs[w][1]["schedulers"][0] for w in runs}
+        if not all(same_records(a, b) for a, b in zip(
+                sch["card"].history, sch["cpu"].history, strict=True)):
+            raise RuntimeError(f"fed_train reduced {mode}: the card's round "
+                               f"records differ from the CPU's")
+        n_leaves, E = len(sch["card"].params), sch["card"].E
+        cap = sch["card"].engine.capacity
+        want = (expected_launches(masked_sgd=R * E * n_leaves,
+                                  weighted_agg=R)
+                if mode == "client_parallel" else
+                expected_launches(masked_sgd=R * cap * E * n_leaves))
+        got = span_launches(runs["card"][1])
+        if got != want:
+            raise RuntimeError(f"fed_train reduced {mode}: launches {got} "
+                               f"in the spans, expected {want}")
+        w0 = drawn[0]
+        if any(not torch.equal(w0[k], drawn[1][k]) for k in w0):
+            raise RuntimeError("the card's run and the CPU's started from "
+                               "different params")
+        first = {w: runs[w][1]["first"] for w in runs}
+        rows, bad = [], []
+        for name, w in w0.items():
+            raw, kept, share, norm = delta_gap(first["card"][name],
+                                               first["cpu"][name], w, E + 1)
+            rows.append((raw / norm if norm else 0.0, name, share))
+            if kept > TRAIN_DELTA_TOL * norm:
+                bad.append((name, raw, kept, share, norm))
+        rows.sort(reverse=True)
+        worst = max(worst, rows[0][0])
+        log(f"  fed_train {TRAIN_ARCH} reduced (f32), {mode}, {R} rounds, "
+            f"capacity {cap}: records equal to the CPU's "
+            f"({''.join(h.event for h in sch['card'].history)}); launches "
+            f"in the spans {({k: n for k, n in got.items() if n})}; first "
+            f"span's largest |d_card - d_cpu| / |d| {rows[0][0]:.3e} "
+            f"({rows[0][1]}, elements {E + 1} ulps or less apart: "
+            f"{rows[0][2]:.4f}); final probe loss card "
+            f"{runs['card'][0]['final_loss']:.6f}, CPU "
+            f"{runs['cpu'][0]['final_loss']:.6f}")
+        if bad:
+            raise RuntimeError(f"fed_train reduced {mode}: leaves outside "
+                               f"TRAIN_DELTA_TOL (name, raw, kept, share, "
+                               f"norm): {bad}")
+    return worst
+
+
+def fed_train_path(dev, card) -> list:
+    rows = [fed_train_full_width(dev, card),
+            fed_train_full_width(dev, card, "int8")]
+    rows[0]["reduced_worst_delta_ratio"] = fed_train_reduced_against_cpu(dev)
+    log(json.dumps({"fed_train": rows}))
+    return rows
+
+
 # -- 10. checkpoint and resume -------------------------------------------------
 def checkpoint_scheduler(mode: str, compression=None):
     """The main path's federation on a StreamScheduler (model_kind "cnn",
@@ -5131,12 +5417,14 @@ def main() -> None:
     paper_leaves = {cfg.kind: {name: p.numel() for name, p in
                                sorted(init_small(cfg, device=dev).items())}
                     for cfg in (SYNTHETIC_LR, MNIST_MLP, EMNIST_CNN)}
-    agg_err = check_weighted_agg(dev, D)
-    sgd_err = check_masked_sgd(dev, leaves, paper_leaves,
-                               lm_leaves(dev, TRAIN_ARCH))
+    train_leaves = lm_leaves(dev, TRAIN_ARCH)
+    lm_D = sum(n for n, _ in train_leaves.values())
+    agg_err = check_weighted_agg(dev, D, lm_D)
+    sgd_err = check_masked_sgd(dev, leaves, paper_leaves, train_leaves)
     flash_err = phase("3 flash_attention", check_flash_attention, dev,
                       planted)
-    quant_err = check_weighted_agg_quant(dev, D, planted_quant, planted_ring)
+    quant_err = check_weighted_agg_quant(dev, D, lm_D, planted_quant,
+                                         planted_ring)
     check_quant_memory(dev, D)
     ssd_err = phase("3 ssd_intra_chunk", check_ssd_intra_chunk, dev,
                     planted_ssd, planted_ssd_head)
@@ -5162,6 +5450,7 @@ def main() -> None:
                      {"flash_attention": planted,
                       "ssd_intra_chunk": planted_ssd}, card)
     train_row = phase("9d training", train_path, dev, card)
+    fed_train_rows = phase("9e fed_train", fed_train_path, dev, card)
     phase("10 checkpoint", checkpoint_path, dev, len(leaves), card)
     uncut = phase("11 scenarios", scenario_path, dev, card)
     phase("12 bank", bank_path, dev, card, len(leaves), uncut)
@@ -5189,18 +5478,26 @@ def main() -> None:
                 paths[f"{r['arch']} with {p['patches']} patches"] = \
                     p["flash_launches_per_prefill"]
         return paths
+    def fed_train_paths(kernel):
+        """The fed_train rounds' launches of the kernel per round, by
+        wire."""
+        return {f"fed_train {r['arch']} {r['wire']} (a round)":
+                r["launches_per_round"][kernel]
+                for r in fed_train_rows if kernel in r["launches_per_round"]}
     time_ssd_head_blocks(dev)
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
         dict(name="weighted_agg", route="cuda",
              source=f"{csrc}/weighted_agg.cu",
              replaces="src/repro/kernels/weighted_agg.py:108",
-             launches=launches["weighted_agg"], max_abs_err=agg_err, **agg_t),
+             launches=launches["weighted_agg"], max_abs_err=agg_err, **agg_t,
+             other_paths=fed_train_paths("weighted_agg")),
         dict(name="weighted_agg_quant", route="cuda",
              source=f"{csrc}/weighted_agg_quant.cu",
              replaces="src/repro/kernels/weighted_agg.py:187",
              launches=int8_launches["weighted_agg_quant"],
-             max_abs_err=quant_err, **quant_t),
+             max_abs_err=quant_err, **quant_t,
+             other_paths=fed_train_paths("weighted_agg_quant")),
         dict(name="weighted_agg_sharded", route="cuda",
              source=f"{csrc}/weighted_agg.cu",
              replaces="src/repro/kernels/weighted_agg.py:294",
@@ -5219,7 +5516,8 @@ def main() -> None:
              replaces="src/repro/kernels/masked_sgd.py:26",
              launches=launches["masked_sgd"], max_abs_err=sgd_err, **sgd_t,
              other_paths={f"train {train_row['arch']} (a round)":
-                          train_row["masked_sgd_per_round"]}),
+                          train_row["masked_sgd_per_round"],
+                          **fed_train_paths("masked_sgd")}),
         dict(name="flash_attention", route="cuda",
              source=f"{csrc}/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:64",

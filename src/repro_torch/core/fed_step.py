@@ -32,7 +32,8 @@ from repro_torch.core.aggregation import (accumulate_delta,
                                           aggregate_deltas,
                                           aggregate_deltas_compressed_ref,
                                           aggregate_deltas_flat,
-                                          apply_accumulator)
+                                          apply_accumulator,
+                                          scheme_coefficients)
 from repro_torch.core.compression import (resolve_compression,
                                           round_trip_tree)
 from repro_torch.kernels import ops
@@ -254,3 +255,20 @@ def make_fed_round(loss_fn: Callable, mode: str = "client_parallel",
                          f"got {mode!r}")
     return functools.partial(fed_round_sequential, loss_fn,
                              compression=compression, model_kind=model_kind)
+
+
+def fed_train_step(loss_fn: Callable, cfg, params: Params, batches,
+                   alpha: torch.Tensor, p_weights, eta,
+                   scheme: Optional[str] = None, mode: Optional[str] = None):
+    """One-call round: the scheme's coefficients from the realized s =
+    alpha.sum(-1) (``scheme`` and ``mode`` default to ``cfg.fed``'s), then
+    ``make_fed_round(loss_fn, mode)``'s round.  Returns (new params,
+    metrics); the new params are written into ``params`` in place."""
+    scheme = scheme or cfg.fed.scheme
+    mode = mode or cfg.fed.mode
+    s = alpha.sum(-1)
+    f32 = dict(dtype=torch.float32, device=s.device)
+    coeffs = scheme_coefficients(scheme, torch.as_tensor(p_weights, **f32),
+                                 s, cfg.fed.local_epochs)
+    return make_fed_round(loss_fn, mode)(params, batches, alpha, coeffs,
+                                         torch.as_tensor(eta, **f32))

@@ -15,7 +15,7 @@ from repro_torch.fed.service import FederationService
 from repro_torch.fed.sharding import FedSharding, make_fed_sharding
 from repro_torch.fed.state import FedState
 from repro_torch.fed.stream import StreamScheduler
-from repro_torch.fed.task import ArrayTask, BufferSpec, ClientTask
+from repro_torch.fed.task import ArrayTask, BufferSpec, ClientTask, LMTask
 from repro_torch.fed.validate import (QuadraticProblem, QuadraticRunner,
                                       RunDump, TheoryValidator,
                                       generate_participation_schedule,
@@ -27,7 +27,7 @@ __all__ = ["CompressionSpec", "resolve_compression", "Client",
            "Departure", "TraceShift", "InactivityBurst",
            "ParticipationEvent", "FedSharding", "make_fed_sharding",
            "FedState", "StreamScheduler", "ArrayTask", "BufferSpec",
-           "ClientTask", "Fault", "FaultPlan", "InjectedFault",
+           "ClientTask", "LMTask", "Fault", "FaultPlan", "InjectedFault",
            "InjectedWriteError", "FederationService", "FuzzHarness",
            "InvariantViolation", "generate_case", "run_corpus",
            "run_fuzz_case", "make_backend_pool", "run_backend_matrix",

@@ -44,14 +44,12 @@ by either package resumes in the other::
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch import params as layout
 from repro_torch.checkpoint.io import load_fed_checkpoint, save_fed_checkpoint
-from repro_torch.configs.paper import PAPER_CONFIGS
 from repro_torch.core.arrivals import RebootState
 from repro_torch.core.departures import BoundTerms
 from repro_torch.fed.bank import ClientBank, CohortStager
@@ -598,15 +596,17 @@ class StreamScheduler:
              client_chunks: Optional[bool] = None) -> None:
         """Persist params, FedState, history and engine geometry in the
         reference's format (``checkpoint.io.save_fed_checkpoint``), the
-        params in the reference's layout for the engine's ``model_kind``.
+        params in the reference's layout (the task's ``disk_params``).
         ``client_chunks`` (default: a bank-backed scheduler's) writes
         fed-checkpoint-v2, one checksummed npz per client.  Under sharding
         every rank holds the same params and state: save from one rank."""
         if client_chunks is None:
             client_chunks = self.bank is not None
+        eng = self.engine
         save_fed_checkpoint(
-            path, reference_params(self.params, self.engine.model_kind),
-            self.state.to_dict(), history=history_to_dict(self.history),
+            path, eng.task.disk_params(self.params, eng.model_kind),
+            self.state.to_dict(),
+            history=history_to_dict(self.history),
             config=self.engine_config(), extra=extra,
             injector=self.injector, telemetry=self.telemetry,
             client_chunks=client_chunks)
@@ -629,14 +629,14 @@ class StreamScheduler:
         Only the callables (``loss_fn`` or ``task``, ``eval_fn`` or
         ``evaluate``) are the caller's to supply.  ``model_kind`` (the
         checkpoint's own, else None) fixes the layout the params are read
-        in; ``injector`` and ``log_spans`` go to the restored scheduler;
-        ``overrides`` replace entries of the
-        persisted geometry.  A reused ``engine`` must be driven by no other
-        thread (the service's supervisor reuses one only after joining
-        the worker that drove it).  The
-        bank and the stager are rebuilt from the restored clients when the
-        config says ``bank`` or ``prefetch`` (their contents are derived
-        state, never persisted raw).
+        in (the task's ``params_from_disk``); ``injector`` and
+        ``log_spans`` go to the restored scheduler; ``overrides`` replace
+        entries of the persisted geometry.  A reused ``engine`` must be
+        driven by no other thread (the service's supervisor reuses one only
+        after joining the worker that drove it).  The bank and the stager
+        are rebuilt from the restored clients when the config says
+        ``bank`` or ``prefetch`` (their contents are derived state, never
+        persisted raw).
 
         Raises ``checkpoint.CorruptCheckpointError`` when the checkpoint
         fails its checksum."""
@@ -684,88 +684,14 @@ class StreamScheduler:
         engine.admit_many(sorted(
             ((slot, state.clients[i]) for i, slot in state.slot_of.items()),
             key=lambda sc: sc[0]))
-        return cls(init_params=port_params(params, engine.model_kind,
-                                           engine.device),
+        return cls(init_params=engine.task.params_from_disk(
+                       params, engine.model_kind, engine.device),
                    engine=engine, state=state, mode=cfg["mode"],
                    eval_fn=eval_fn, evaluate=evaluate,
                    history=history_from_dict(history), telemetry=telemetry,
                    injector=injector, log_spans=log_spans,
                    bank=cfg.get("bank", False),
                    prefetch=cfg.get("prefetch", False))
-
-
-# -- params on disk: the reference's layout ------------------------------------
-
-_CONFIG_OF_KIND = {cfg.kind: cfg for cfg in PAPER_CONFIGS.values()}
-
-
-def _config_of(kind: Optional[str], params):
-    """The paper model config whose layout ``kind`` names; None where the
-    two packages' layouts are one.  A 4-D leaf (a convolution's weights)
-    with no kind raises: its layout would be a guess."""
-    if kind is None:
-        if any(np.ndim(v) == 4 for v in params.values()):
-            raise ValueError(
-                "parameters with a 4-D (convolution) leaf need the model's "
-                "kind (RoundEngine(model_kind=...) or restore(model_kind="
-                "...)): the CNN's layout on disk is the reference's, not "
-                "the port's")
-        return None
-    if kind not in _CONFIG_OF_KIND:
-        raise ValueError(f"unknown model kind {kind!r}; expected one of "
-                         f"{sorted(_CONFIG_OF_KIND)}")
-    return _CONFIG_OF_KIND[kind]
-
-
-_NUMPY_FLOATS = (torch.float16, torch.float32, torch.float64)
-_TORCH_INT_BY_ITEMSIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32,
-                          8: torch.int64}
-
-
-def _as_bits(params) -> Tuple[dict, dict]:
-    """Split leaves numpy has no dtype for (bfloat16, the float8 types) into
-    a signed-int view of their bits on the host, so the layout functions
-    can move them, and the dtype each had: (leaves, {name: dtype})."""
-    out, dtypes = {}, {}
-    for k, v in params.items():
-        if isinstance(v, torch.Tensor) and v.is_floating_point() \
-                and v.dtype not in _NUMPY_FLOATS:
-            dtypes[k] = v.dtype
-            v = v.detach().cpu().view(_TORCH_INT_BY_ITEMSIZE[v.element_size()])
-        out[k] = v
-    return out, dtypes
-
-
-def reference_params(params, kind: Optional[str]) -> dict:
-    """The port's params as the reference lays them out on disk: numpy,
-    except bf16 (and float8) leaves, which stay torch tensors for
-    ``checkpoint.io`` to store as bits under their dtype's name."""
-    cfg = _config_of(kind, params)
-    params, dtypes = _as_bits(params)
-    if cfg is None:
-        out = {k: v.detach().cpu().numpy() for k, v in params.items()}
-    else:
-        out = layout.to_numpy(params, cfg)
-    for k, dt in dtypes.items():
-        out[k] = torch.from_numpy(out[k]).view(dt)
-    return out
-
-
-def port_params(params, kind: Optional[str], device) -> dict:
-    """The reference's layout on disk -> the port's tensors on device, bf16
-    (and float8) leaves, as ``checkpoint.io`` loads them, bit for bit."""
-    cfg = _config_of(kind, params)
-    params, dtypes = _as_bits(params)
-    params = {k: v.numpy() if isinstance(v, torch.Tensor) else v
-              for k, v in params.items()}
-    if cfg is None:
-        out = {k: torch.tensor(np.asarray(v), device=device)
-               for k, v in params.items()}
-    else:
-        out = layout.from_jax(params, cfg, device)
-    for k, dt in dtypes.items():
-        out[k] = out[k].view(dt)
-    return out
 
 
 # -- history (de)serialization -------------------------------------------------

@@ -67,10 +67,12 @@ def _ssm_init(H: int):
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device=None) -> Dict[str, object]:
     """Fresh parameters in the reference's layout on ``device`` (the CUDA
-    device unless the CPU is asked for)."""
-    device = resolve_device(device)
+    device unless the CPU is asked for; on ``"meta"`` the tree's shapes and
+    dtypes, nothing allocated or drawn)."""
+    device = resolve_device(device, meta=True)
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
 
     def dense(*shape, scale=0.02, dt=dtype):
         return torch.randn(*shape, generator=gen, device=device,

@@ -225,8 +225,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     the compressed ``ckv`` and ``krope`` rows in ``max_len`` slots (no ring
     buffer).  SSM (alone or beside attention in the hybrid block): the last
     K-1 conv inputs (``cfg.dtype``) and the f32 state.  ``max_len`` counts
-    every position the cache will hold, patches included."""
-    device = resolve_device(device)
+    every position the cache will hold, patches included.  On ``"meta"``:
+    the shapes and dtypes alone."""
+    device = resolve_device(device, meta=True)
     dtype = torch_dtype(cfg)
     slots = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 

@@ -21,6 +21,18 @@ from repro_torch.core import aggregation as port
 from repro_torch.kernels.weighted_agg import VECTOR_BYTES, row_stride
 from repro_torch.params import from_jax, to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CONFIGS = {"logreg": SYNTHETIC_LR, "mlp": MNIST_MLP, "cnn": EMNIST_CNN}
 AGG_TOL = dict(rtol=1e-6, atol=1e-7)
 

@@ -64,6 +64,18 @@ from repro_torch.models.small import init_small, make_loss_fn
 from repro_torch.params import to_numpy
 from test_torch_trainer import PARAM_TOL, port_eval
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 CUT = 6                         # the reference's kill round
 ROUNDS = 12

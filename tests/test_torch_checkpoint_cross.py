@@ -31,6 +31,7 @@ rebuilt; the resumed records equal the saver's uncut run's.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro_torch.fed.engine as port_engine
 from repro_torch.configs.paper import EMNIST_CNN as PORT_CNN
@@ -42,6 +43,18 @@ from test_torch_checkpoint import (CUT, EVAL_EVERY, ROUNDS, SCENARIOS,
                                    events, port_client, port_scheduler,
                                    ref_scheduler)
 from test_torch_trainer import PARAM_TOL, port_eval, ref_eval
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 LOSS_RTOL = 1e-5
 # (model, sampling mode); the logreg at eta0 0.5 (see the docstring)

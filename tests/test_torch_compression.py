@@ -16,6 +16,18 @@ from repro.core import compression as R
 from repro_torch.core import compression as P
 from repro_torch.kernels.weighted_agg import VECTOR_BYTES
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPEC_NAMES = ("none", "bf16", "int8", "int8-topk",
               "int8:chunk=1024,levels=63", "int8-topk:topk=0.05",
               "int8:levels=1,chunk=4096", "int8:chunk=100")

@@ -4,6 +4,7 @@ one seed, the data generators build the same arrays, and the arrival and
 departure rules decide alike."""
 import numpy as np
 import pytest
+import torch
 
 from repro.core import arrivals, departures, participation
 from repro.data import images
@@ -11,6 +12,18 @@ from repro_torch.core import arrivals as port_arrivals
 from repro_torch.core import departures as port_departures
 from repro_torch.core import participation as port_participation
 from repro_torch.data import images as port_images
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 def test_traces_are_the_reference_table():

@@ -42,6 +42,18 @@ from repro_torch.params import from_jax, to_numpy
 from test_torch_quant import _port_flat, _step_bound
 from test_torch_trainer import PARAM_TOL, port_eval, ref_eval
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PCFG = port_configs.PAPER_CONFIGS[SYNTHETIC_LR.name]
 SEEDS = (0, 1, 12345, 2 ** 31 - 1)
 TAUS = (0, 1, 7, 999, 2 ** 31 + 3)

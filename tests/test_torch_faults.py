@@ -22,9 +22,22 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.fed import faults as P
 from repro_torch.fed import Fault, FaultPlan, InjectedFault, InjectedWriteError
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SEEDS = range(32)
 

@@ -39,7 +39,8 @@ for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
              "repro_torch.data.tokens", "repro_torch.optim",
              "repro_torch.optim.sgd", "repro_torch.launch.train",
              "repro_torch.configs.llava_next_34b",
-             "repro_torch.configs.musicgen_medium"):
+             "repro_torch.configs.musicgen_medium",
+             "repro_torch.launch.steps", "repro_torch.launch.fed_train"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -102,6 +103,9 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         paper_tables.table4_fast_reboot(rounds_after=1, taus=(1,))
     with pytest.raises(RuntimeError, match="CUDA"):
         paper_tables.table3_trainer("synthetic", True, 1, "C")
+    from repro_torch.launch import fed_train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed_train.main(["--rounds", "1", "--quiet"])
     # asked for, the CPU runs
     FederatedTrainer(loss_fn=make_loss_fn(SYNTHETIC_LR), init_params=params,
                      clients=clients, device="cpu")

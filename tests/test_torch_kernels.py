@@ -13,6 +13,18 @@ from repro.kernels.weighted_agg import weighted_agg as jax_weighted_agg
 from repro_torch.kernels import ops
 from repro_torch.kernels.weighted_agg import VECTOR_BYTES, padded, row_stride
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 

@@ -15,12 +15,14 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.launch import fed_train as jfed_train
 from repro.launch import serve as jserve
 from repro.launch import train as jtrain
 from repro.models import transformer as jtransformer
 from repro.models.params import init_params as jinit_params
 from repro_torch.configs import ARCH_IDS, PORTED_IDS, get_config
 from repro_torch.kernels import ops
+from repro_torch.launch import fed_train as fed_train_mod
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import train as train_mod
 from repro_torch.models import transformer
@@ -277,12 +279,13 @@ def _default_args(main, monkeypatch):
 
 
 @pytest.mark.parametrize("port,ref", [(serve_mod, jserve),
-                                      (train_mod, jtrain)],
-                         ids=["serve", "train"])
+                                      (train_mod, jtrain),
+                                      (fed_train_mod, jfed_train)],
+                         ids=["serve", "train", "fed_train"])
 def test_cli_defaults_match_reference(port, ref, monkeypatch):
-    """Both packages' CLIs default to the same architecture (mamba2-130m)
-    and every other flag the reference has to the same value; the port
-    adds --device only."""
+    """The packages' serve, train and fed_train CLIs default to the same
+    architecture (mamba2-130m) and every other flag the reference has to
+    the same value; the port adds --device only."""
     mine = _default_args(port.main, monkeypatch)
     theirs = _default_args(ref.main, monkeypatch)
     assert mine["arch"] == theirs["arch"] == "mamba2-130m"

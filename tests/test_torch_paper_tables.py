@@ -37,6 +37,18 @@ from repro_torch.params import from_jax, to_numpy
 from test_torch_quant import _port_flat
 from test_torch_trainer import PARAM_TOL
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROWS = R.reference_rows()["rows"]
 
 

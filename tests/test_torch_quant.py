@@ -50,6 +50,18 @@ from repro_torch.params import from_jax, reference_order, to_numpy
 from test_torch_aggregation import AGG_TOL
 from test_torch_trainer import PARAM_TOL, _clients, port_eval, ref_eval
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = ops.TOLERANCE["weighted_agg_quant"][torch.int8]
 CONFIGS = {"logreg": SYNTHETIC_LR, "mlp": MNIST_MLP, "cnn": EMNIST_CNN}
 WIRES = ("int8", "int8-topk", "bf16")

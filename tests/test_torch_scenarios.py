@@ -35,11 +35,24 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import repro_torch.fed.engine as port_engine
 from repro_torch.configs.paper import SYNTHETIC_LR
 from repro_torch.fed import scenarios as P
 from repro_torch.params import from_jax, to_numpy
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-5

@@ -60,6 +60,18 @@ from repro_torch.models.small import init_small as port_init_small
 from repro_torch.models.small import make_loss_fn as port_loss_fn
 from repro_torch.params import from_jax, to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_RANKS = 4
 ROUNDS = 12
 CAPACITY = 7                    # padded to 8 over 4 ranks

@@ -34,6 +34,18 @@ from repro_torch.models.blocks import block_apply
 from repro_torch.models.params import init_params, param_count
 from repro_torch.params import lm_from_jax, lm_to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "mamba2-130m"
 KEY = jax.random.PRNGKey(0)
 BLOCK_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -22,6 +22,18 @@ from repro_torch.fed.scenarios import (_paper_eval_fn, make_scenario,
                                        scenario_init)
 from repro_torch.models.small import make_loss_fn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 1, 7, 12345]
 E = 4     # tests/test_arrivals_departures.py's E
 

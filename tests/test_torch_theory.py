@@ -34,6 +34,18 @@ from repro_torch.data import synthetic as port_synthetic
 
 from test_convergence import E, N, make_problem, run_scheme
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODES = ("client_parallel", "client_sequential")
 # Table 1's distances: 300 f32 rounds of a contraction, the reference's
 # order of operations against the port's

@@ -27,6 +27,18 @@ from repro_torch.data import (label_sorted_partition, make_class_dataset,
 from repro_torch.models import small as port_small
 from repro_torch.params import from_jax, to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: beside the other test workers, a pool of
+    threads per process oversubscribes the cores, and its idle threads
+    spin, slowing every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
