@@ -4,7 +4,8 @@ round in plan and device mode, the compressed federated round, the client-sharde
 paper's experiments with the client-sequential round, LM serving,
 Mamba2 SSD serving, the LM zoo's dense, hybrid, MLA + MoE, multimodal and
 audio serving, federated LM training (the seed host loop and through
-the device-resident engine), the
+the device-resident engine), tensor and expert parallelism over a model
+axis of 2 ranks on the card, the
 streamed federation's checkpoint and resume, the
 streaming scenario library through its CLI, the tiered client bank
 with its cohort prefetch and the telemetry, the live federation
@@ -170,7 +171,37 @@ it, and nothing of JAX or of the JAX package.  In order it
    events), masked_sgd and weighted_agg once a round (client_sequential:
    capacity x E x leaves one-row masked_sgd launches a round, no
    reduction kernel), each leaf's delta over the first span within
-   TRAIN_DELTA_TOL of its norm (after TRAIN_FLIP_SHARE);
+   TRAIN_DELTA_TOL of its norm (after TRAIN_FLIP_SHARE); then the model
+   axis (9f): TP_RANKS ranks of this script (``--tp-worker``) started on
+   the one card through ``python -m repro_torch.launch.cluster --backend
+   gloo --axis-backends model=gloo,data=nccl`` (NCCL refuses two ranks of
+   one communicator on one device, so the model axis runs on gloo over
+   CUDA tensors, through host memory, and each rank's federation axis is
+   a one-rank NCCL group), each rank checking that gloo carries bf16 CUDA
+   tensors: (a) command-r-plus-104b at full width with TP_LAYERS of its
+   64 layers, bf16, flash, the model axis over 2 ranks, batch 4 x 4,096
+   and ZOO_GEN decode steps on each rank's shards: flash_attention once
+   per layer per prefill on the rank's 48 heads and none per decode step,
+   finite logits within LOGITS_FACTOR of the chunked path's error against
+   the model with attention in f32, a rank dropping its attention partial
+   before the reduce outside it, warm prefill tokens/s and decode ms/step
+   with the model-axis all-reduce's share of each, the memory high-water
+   mark per rank; (b) every reduced config in f32 (and gemma's at head dim
+   256 with flash) on the ranks' shards against the CPU's unsharded plain
+   path within REDUCED_TOL, deepseek through expert parallelism, hymba and
+   mamba2 through ssd_intra_chunk on the rank's heads; (c) ``fed_train
+   --full --arch mamba2-130m --data 1 --model 2`` for FED_TRAIN_ROUNDS
+   rounds: masked_sgd E x leaves and weighted_agg_sharded once a round
+   per rank, the arrival applied, round records equal to 9e's f32 run's;
+   its reduced config in f32 against the same run unsharded on the card
+   (records equal, first-span deltas within TRAIN_DELTA_TOL after
+   TRAIN_FLIP_SHARE); one round at full width in f32 (the dtype patched)
+   against the same round unsharded on the card, each leaf's first-span
+   delta within TP_FULL_DELTA_TOL of its norm, and again with the SSM's
+   out_proj reduce dropped on every rank outside it (the full width's
+   bf16 first span against 9e's reported); then starcoder2-3b's reduced config over TP_COPY_RANKS ranks
+   (its 2 KV heads copied) against the CPU, a copied head cut from the
+   wrong offset caught;
 10. drives checkpoint and resume of the streamed federation: a
    ``StreamScheduler`` with ``model_kind="cnn"`` over the main path's
    EMNIST federation (capacity CKPT_CAPACITY), a TraceShift, an
@@ -324,13 +355,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA's data sheet): device memory, f32 outside the
-# tensor cores (weighted_agg and masked_sgd), dense bf16 on the tensor cores
+# H100 SXM peaks (NVIDIA's data sheet), from repro_torch.launch.mesh (set
+# by import_port): device memory, f32 outside the tensor cores
+# (weighted_agg and masked_sgd), dense bf16 on the tensor cores
 # (flash_attention at the serving shape); and its L2 cache
-HBM_BYTES_PER_S = 3.35e12
-L2_BYTES = 50e6
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+HBM_BYTES_PER_S = L2_BYTES = F32_FLOPS_PER_S = BF16_FLOPS_PER_S = None
 
 N_CLIENTS = 62          # EMNIST_CNN.n_devices
 ROUNDS = 6              # main path: arrival at TAU_ARRIVE, departure at
@@ -562,6 +591,30 @@ FED_TRAIN_PROFILED_SPAN = 4
 FED_TRAIN_CAPACITY = 6
 FED_TRAIN_MODES = ("client_parallel", "client_sequential")
 FED_TRAIN_REDUCED_ROUNDS = 4
+
+# the model axis (step 9f): TP_RANKS ranks on the one card through
+# launch.cluster, the model axis on gloo over CUDA tensors (NCCL refuses
+# two ranks of one communicator on one device) and each rank's federation
+# axis a one-rank NCCL group; command-r at full width with TP_LAYERS of its
+# 64 layers, every reduced config, and fed_train with --data 1 --model 2;
+# then TP_COPY_RANKS ranks for copied KV heads (a reduced config's 2 KV
+# heads over 4 ranks)
+TP_RANKS = 2
+TP_ARCH = "command-r-plus-104b"
+TP_LAYERS = 4
+TP_BACKENDS = "model=gloo,data=nccl"
+TP_COPY_RANKS = 4
+TP_COPY_ARCH = "starcoder2-3b"
+TP_COPY_FAULT_RANK = 2      # holds KV head 1: planted, it takes head 0's
+TP_WO_FAULT_RANK = 1        # drops its attention partial before the reduce
+TP_TIMEOUT_S = 600
+# fed_train's first round at full width in f32 on the model axis against
+# the same round unsharded: the ranks' partial gradients sum in another
+# order, which puts ~1.8% of the SSM's in_B, in_C and in_dt elements an ulp
+# apart after the E + 1 roundings (past TRAIN_FLIP_SHARE), at 1.0e-4 of
+# those leaves' delta norms (PERF.md); each leaf's raw difference
+# is held to twice that (a dropped out_proj reduce reads ~1, PERF.md)
+TP_FULL_DELTA_TOL = 2e-4
 # a leaf whose exact gradient is zero has a delta of rounding noise alone,
 # which no tolerance relative to itself can hold: the key bias without
 # rotary embeddings (each query's scores shift by one constant, which the
@@ -740,6 +793,11 @@ def import_port():
                          f"{Path(__file__).name}; run it from the root of a "
                          f"checkout of the repository")
     sys.path.insert(0, str(src))
+    global HBM_BYTES_PER_S, L2_BYTES, F32_FLOPS_PER_S, BF16_FLOPS_PER_S
+    from repro_torch.launch import mesh
+    HBM_BYTES_PER_S, L2_BYTES = mesh.HBM_BYTES_PER_S, mesh.L2_BYTES
+    F32_FLOPS_PER_S, BF16_FLOPS_PER_S = (mesh.F32_FLOPS_PER_S,
+                                         mesh.BF16_FLOPS_PER_S)
 
 
 def card_line() -> str:
@@ -3425,7 +3483,7 @@ def span_launches(seen) -> dict:
             for k in seen["spans"][0][3]}
 
 
-def fed_train_full_width(dev, card, compress=None) -> dict:
+def fed_train_full_width(dev, card, compress=None) -> tuple:
     """``python -m repro_torch.launch.fed_train --full --arch TRAIN_ARCH
     --arrive 1`` for FED_TRAIN_ROUNDS rounds at its other defaults (C 4,
     capacity 6, E 2, batch 2, seq 64, scheme C, device-mode draws, agg
@@ -3507,9 +3565,16 @@ def fed_train_full_width(dev, card, compress=None) -> dict:
                launches_per_round={k: n // R for k, n in got.items() if n},
                warm_rounds_per_s=rounds_per_s, busy=busy,
                peak_gib=peak / 2 ** 30, card=card)
+    run = dict(first=seen["first"], records=fed_records(sch.history))
     del out, sch, seen
     torch.cuda.empty_cache()
-    return row
+    return row, run
+
+
+def fed_records(history) -> list:
+    """A run's round records, comparable across processes."""
+    return [(h.tau, float(h.eta), h.n_active, h.event, np.asarray(h.s))
+            for h in history]
 
 
 @contextlib.contextmanager
@@ -3598,12 +3663,16 @@ def fed_train_reduced_against_cpu(dev) -> float:
     return worst
 
 
-def fed_train_path(dev, card) -> list:
-    rows = [fed_train_full_width(dev, card),
-            fed_train_full_width(dev, card, "int8")]
+def fed_train_path(dev, card) -> tuple:
+    """The rows of the f32 and int8 runs, and the f32 run's first-span
+    params and records (the model-axis phase's unsharded reference)."""
+    (f32_row, f32_run), (int8_row, _) = (
+        fed_train_full_width(dev, card),
+        fed_train_full_width(dev, card, "int8"))
+    rows = [f32_row, int8_row]
     rows[0]["reduced_worst_delta_ratio"] = fed_train_reduced_against_cpu(dev)
     log(json.dumps({"fed_train": rows}))
-    return rows
+    return rows, f32_run
 
 
 # -- 10. checkpoint and resume -------------------------------------------------
@@ -4942,7 +5011,11 @@ def device_ms(fn, n: int, spin: int = 50_000_000) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound_ms(n_bytes: float, ops: float, ops_per_s: float = F32_FLOPS_PER_S):
+def bound_ms(n_bytes: float, ops: float, ops_per_s: float = None):
+    """The least time for ``n_bytes`` and ``ops`` (at ``ops_per_s``, the
+    f32 peak by default) on the card, in ms, and which of the two bounds
+    it."""
+    ops_per_s = ops_per_s or F32_FLOPS_PER_S
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / ops_per_s * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
@@ -5352,6 +5425,598 @@ def time_ssd_head_blocks(dev) -> None:
                 f"{ms:.4f} ms" for h, ms in times.items()))
 
 
+
+# -- 9f. the model axis: tensor and expert parallelism -------------------------
+def tp_grid(world: int):
+    """The (data 1, model ``world``) grid over the world this rank joined,
+    its groups on TP_BACKENDS (``launch.cluster --axis-backends``)."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    return make_smoke_mesh(1, world)
+
+
+def tp_check_bf16(dev, grid) -> str:
+    """gloo with CUDA tensors must carry bf16 through all_reduce: the sum of
+    the ranks' rows, exact in bf16."""
+    import torch.distributed as dist
+    m, r = grid.shape["model"], grid.coord("model")
+    t = torch.full((4096,), float(r + 1), dtype=torch.bfloat16, device=dev)
+    dist.all_reduce(t, group=grid.group("model"))
+    want = float(m * (m + 1) // 2)
+    if not bool((t == want).all()):
+        raise RuntimeError(f"gloo's bf16 all_reduce of CUDA tensors gave "
+                           f"{t[:4].tolist()}, expected {want}")
+    return f"gloo all_reduce of a bf16 CUDA tensor: {want:g} on every rank"
+
+
+def tp_command_r(dev, grid) -> dict:
+    """TP_ARCH at full width with TP_LAYERS layers, bf16, flash, on this
+    rank's shards: serve (launches per prefill and decode step), warm
+    prefill and decode with the all-reduce's share, the memory high-water
+    mark; the logits against the model with attention in f32 within
+    LOGITS_FACTOR of the chunked path's error, and a rank dropping its
+    attention partial (a wo fault) outside it."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import blocks, transformer
+    from repro_torch.models.params import init_params, shard_params
+    from repro_torch.models.sharding import (collective_stats, use_mesh,
+                                             time_collectives)
+    cfg = zoo_config(TP_ARCH, "flash", TP_LAYERS)
+    B, S = SERVE_BATCH, PROMPT_LEN
+    rank = grid.coord("model")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    full = init_params(cfg, seed=0, device=dev)
+    params = shard_params(full, cfg, grid)
+    del full
+    torch.cuda.empty_cache()
+    with use_mesh(grid):
+        ops.reset_launches()
+        out = serve(cfg, batch=B, prompt_len=S, gen=ZOO_GEN, seed=0,
+                    device=dev, params=params)
+        torch.cuda.synchronize()
+        served_launches = dict(ops.launches)
+        prompts, cache = out["prompts"], out["cache"]
+        tok, served = out["tokens"][:, :1], out["prefill_logits"]
+        finite = all(bool(torch.isfinite(out[k]).all())
+                     for k in ("prefill_logits", "logits"))
+        del out
+        # warm: a prefill, then decode steps, each with the collectives'
+        # seconds (each all-reduce between two synchronisations)
+        time_collectives(True)
+        collective_stats(reset=True)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        transformer.prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per_prefill = dict(ops.launches)
+        pre = collective_stats(reset=True)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(WARM_STEPS):
+            transformer.decode_step(params, cfg, cache, tok, S + i)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / WARM_STEPS
+        per_step = {k: n / WARM_STEPS for k, n in ops.launches.items() if n}
+        dec = collective_stats(reset=True)
+        time_collectives(False)
+        del cache
+        torch.cuda.empty_cache()
+
+        chunked_cfg = dataclasses.replace(cfg, attn_impl="chunked")
+        chunked = zoo_logits(params, chunked_cfg, prompts)
+        ref = zoo_logits(params, chunked_cfg, prompts,
+                         attend=attention_in_f32())
+        attn = blocks._attn
+
+        def dropped(*a, **kw):
+            o, c = attn(*a, **kw)
+            return (o * 0 if rank == TP_WO_FAULT_RANK else o), c
+        with mock.patch.object(blocks, "_attn", dropped):
+            bad = zoo_logits(params, cfg, prompts)
+        errs = [logit_errors(x, ref) for x in (served, chunked, bad)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params
+    torch.cuda.empty_cache()
+    return dict(served_launches=served_launches, per_prefill=per_prefill,
+                per_step=per_step, finite=finite, prefill_s=prefill_s,
+                step_s=step_s, prefill_collectives=pre,
+                decode_collectives=dec, errors=errs, peak=peak,
+                ref_std=ref.std().item(), layers=cfg.n_layers)
+
+
+def tp_reduced_cases():
+    """Every reduced config (and gemma's at head dim 256 with flash) with
+    its CPU params, tokens and patches: zoo_reduced_against_cpu's draws."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.params import init_params
+    cases = [(arch, get_config(arch).reduced()) for arch in ARCH_IDS]
+    cases.append(("gemma-7b hd 256 flash", dataclasses.replace(
+        get_config("gemma-7b").reduced(), head_dim=256, attn_impl="flash")))
+    out = []
+    for label, cfg in cases:
+        params = init_params(cfg, seed=0, device="cpu")
+        if "router_bias" in params.get("moe_blocks", {}).get("moe", {}):
+            params["moe_blocks"]["moe"]["router_bias"] = 0.01 * torch.randn(
+                params["moe_blocks"]["moe"]["router_bias"].shape,
+                generator=torch.Generator().manual_seed(1))
+        K = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        tokens = torch.randint(0, cfg.vocab, (2, 100, *K),
+                               generator=torch.Generator().manual_seed(0))
+        patches = 0.02 * torch.randn(
+            2, cfg.n_patches, cfg.d_model,
+            generator=torch.Generator().manual_seed(1)) \
+            if cfg.n_patches else None
+        out.append((label, cfg, params, tokens, patches))
+    return out
+
+
+def tp_reduced(dev, grid, cases) -> dict:
+    """Each reduced case on this rank's shards on the card: its logits and
+    the launches of one prefill and four decode steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import shard_params
+    from repro_torch.models.sharding import use_mesh
+    out = {}
+    for label, cfg, params, tokens, patches in cases:
+        local = _to(shard_params(params, cfg, grid), dev)
+        ops.reset_launches()
+        with use_mesh(grid), torch.no_grad():
+            lg = _prefill_then_decode(
+                local, cfg, tokens.to(dev), 4, dev,
+                None if patches is None else patches.to(dev))
+        out[label] = ([x.cpu() for x in lg], dict(ops.launches))
+    return out
+
+
+def tp_fed_train_run(argv) -> tuple:
+    """``fed_train.main(argv)`` under watched_spans: its output, scheduler
+    and spans."""
+    from repro_torch.launch import fed_train
+    with watched_spans() as seen:
+        out = fed_train.main(argv)
+    return out, seen["schedulers"][0], seen
+
+
+@contextlib.contextmanager
+def fed_train_in_f32(drop_out_proj_reduce: bool = False):
+    """``fed_train.main`` with its config's dtype patched to f32; with
+    ``drop_out_proj_reduce`` (a planted fault) the SSM's out_proj partial
+    is not summed over the model axis on any rank (every rank alike, so
+    the ranks' collectives stay matched)."""
+    from repro_torch.launch import fed_train
+    from repro_torch.models import ssd
+    get, reduce = fed_train.get_config, ssd.reduce_from_model
+
+    def f32_config(arch):
+        return dataclasses.replace(get(arch), dtype="float32")
+
+    def dropped(x, tp):
+        if x.shape[-1] > 1:     # out_proj's (the gated norm's statistic
+            return x            # has one channel)
+        return reduce(x, tp)
+    fed_train.get_config = f32_config
+    if drop_out_proj_reduce:
+        ssd.reduce_from_model = dropped
+    try:
+        yield
+    finally:
+        fed_train.get_config, ssd.reduce_from_model = get, reduce
+
+
+def fed_train_f32_first_span(argv, drop_out_proj_reduce=False) -> dict:
+    """fed_train --full in f32 for one round: the params (the rank's
+    shards under a grid) after it."""
+    with fed_train_in_f32(drop_out_proj_reduce):
+        _, _, seen = tp_fed_train_run(FED_TRAIN_ARGS + ["--full", "--rounds",
+                                                        "1"] + argv)
+    return seen["first"]
+
+
+def tp_fed_train(dev) -> dict:
+    """On this rank: fed_train --full --arch TRAIN_ARCH --data 1 --model
+    TP_RANKS for FED_TRAIN_ROUNDS rounds (the launches in the spans and
+    outside them, the round records, warm rounds/s, this rank's shards
+    after the first span); one round of it in f32, clean and with the
+    out_proj reduce dropped (the shards after it); then the reduced
+    config's FED_TRAIN_REDUCED_ROUNDS rounds (in f32: the shards after its
+    first span, its records)."""
+    from repro_torch.kernels import ops
+    grid_args = ["--data", "1", "--model", str(TP_RANKS)]
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, sch, seen = tp_fed_train_run(
+        FED_TRAIN_ARGS + ["--full", "--rounds", str(FED_TRAIN_ROUNDS)]
+        + grid_args)
+    timed = seen["spans"][1:]
+    res = dict(first=seen["first"], records=fed_records(sch.history),
+               in_spans=span_launches(seen), all=dict(ops.launches),
+               probes=sum(not math.isnan(h.loss) for h in sch.history),
+               leaves=len(sch.params), E=sch.E, wall_s=out["wall_s"],
+               warm_rounds_per_s=sum(sp[1] for sp in timed)
+               / sum(sp[2] for sp in timed),
+               events=out["events_applied"],
+               peak=torch.cuda.max_memory_allocated(dev))
+    del out, sch, seen
+    res["f32"] = fed_train_f32_first_span(grid_args)
+    res["f32_planted"] = fed_train_f32_first_span(grid_args, True)
+    _, sch, seen = tp_fed_train_run(
+        FED_TRAIN_ARGS + ["--rounds", str(FED_TRAIN_REDUCED_ROUNDS)]
+        + grid_args)
+    res["reduced"] = dict(first=seen["first"],
+                          records=fed_records(sch.history))
+    return res
+
+
+def tp_copies(dev, grid, cases) -> dict:
+    """TP_COPY_ARCH's reduced config over TP_COPY_RANKS ranks (its 2 KV
+    heads copied): its logits on this rank's shards, and with rank
+    TP_COPY_FAULT_RANK's copied KV head cut from the wrong offset."""
+    from repro_torch.models.params import shard_params
+    from repro_torch.models.sharding import use_mesh
+    (label, cfg, params, tokens, patches), = [
+        c for c in cases if c[0] == TP_COPY_ARCH]
+    rank, hd = grid.coord("model"), cfg.head_dim
+    local = shard_params(params, cfg, grid)
+    bad = {k: dict(v) if isinstance(v, dict) else v
+           for k, v in local.items()}
+    bad["blocks"] = dict(local["blocks"])
+    bad["blocks"]["attn"] = dict(local["blocks"]["attn"])
+    if rank == TP_COPY_FAULT_RANK:
+        for name in ("wk", "wv", "bk", "bv"):       # head 0, not head 1
+            bad["blocks"]["attn"][name] = \
+                params["blocks"]["attn"][name][..., :hd].clone()
+    out = {}
+    for what, p in (("local", local), ("planted", bad)):
+        with use_mesh(grid), torch.no_grad():
+            lg = _prefill_then_decode(_to(p, dev), cfg, tokens.to(dev), 4,
+                                      dev)
+        out[what] = [x.cpu() for x in lg]
+    return out
+
+
+def tp_worker(out_dir: str, leg: str) -> None:
+    """One rank of the phase, started by ``repro_torch.launch.cluster``
+    (which joined it to the world and made the card current): its results
+    into out_dir/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    build.build()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    grid = tp_grid(world)
+    rank = grid.coord("model")
+    cases = torch.load(Path(out_dir) / "cases.pt", weights_only=False)
+    res = {"rank": rank, "bf16": tp_check_bf16(dev, grid)}
+    if leg == "main":
+        t0 = time.perf_counter()
+        res["command_r"] = tp_command_r(dev, grid)
+        res["command_r_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["reduced"] = tp_reduced(dev, grid, cases)
+        res["reduced_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["fed_train"] = tp_fed_train(dev)
+        res["fed_train_s"] = time.perf_counter() - t0
+    else:
+        res["copies"] = tp_copies(dev, grid, cases)
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def tp_launch(out_dir: Path, world: int, leg: str) -> list:
+    """Start ``world`` ranks of ``chip_smoke.py --tp-worker`` through
+    ``python -m repro_torch.launch.cluster`` (gloo world, a file:// init),
+    wait for all of them (killing every one at TP_TIMEOUT_S), echo their
+    logs and return their results by rank."""
+    import shutil
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    init = out_dir / f"pg-{leg}"
+    if init.exists():
+        init.unlink()
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(open(out_dir / f"{leg}-rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.cluster",
+             "--coordinator", f"file://{init}", "--num-processes",
+             str(world), "--process-id", str(r), "--backend", "gloo",
+             "--axis-backends", TP_BACKENDS, "--",
+             "python", str(ROOT / "chip_smoke.py"), "--tp-worker",
+             str(out_dir), leg],
+            cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r in range(world):
+        for line in (out_dir / f"{leg}-rank{r}.log").read_text() \
+                .splitlines():
+            log(f"  [{leg} rank {r}] {line}")
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"the {leg} ranks exited {codes}")
+    shutil.rmtree(init, ignore_errors=True)
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+class _Rank:
+    """A grid's model axis at one rank's coordinate, for cutting full
+    leaves as that rank's shards."""
+
+    def __init__(self, m: int, r: int):
+        self.shape, self.r = {"data": 1, "model": m}, r
+        self.axis_names = ("data", "model")
+
+    def coord(self, axes):
+        return self.r
+
+
+def tp_path(dev, card, fed_train_run) -> dict:
+    """Step 9f: TP_RANKS ranks on the card (see TP_RANKS): command-r's
+    launches, logits, planted wo fault, times and memory per rank; every
+    reduced config against the CPU's unsharded plain path (deepseek through
+    expert parallelism, hymba and mamba2 through ssd_intra_chunk on the
+    rank's heads); fed_train --data 1 --model 2 against step 9e's unsharded
+    run (records equal, first-span deltas within TRAIN_DELTA_TOL), its
+    first round at full width in f32 against the same round unsharded
+    (within TP_FULL_DELTA_TOL; a dropped out_proj reduce outside it); then
+    copied KV heads on TP_COPY_RANKS ranks against the CPU, a head cut from
+    the wrong offset caught.  Returns the launches per rank for the
+    kernel line."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed.task import LMTask
+    from repro_torch.models.params import shard_params
+    from repro_torch.core.fed_step import flatten_tree, unflatten_tree
+    out_dir = ROOT / "build" / "tp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.pt"):
+        f.unlink()
+    cases = tp_reduced_cases()
+    torch.save(cases, out_dir / "cases.pt")
+    plain = {label: _prefill_then_decode(params, cfg, tokens, 4,
+                                         torch.device("cpu"), patches)
+             for label, cfg, params, tokens, patches in cases}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = tp_launch(out_dir, TP_RANKS, "main")
+    launch_s = time.perf_counter() - t0
+    log(f"model axis: {TP_RANKS} ranks on one card through "
+        f"repro_torch.launch.cluster (a gloo world; the model axis on gloo "
+        f"over CUDA tensors, each rank's federation axis a one-rank NCCL "
+        f"group), {launch_s:.1f} s (rank 0: (a) {ranks[0]['command_r_s']:.1f}"
+        f" s, (b) {ranks[0]['reduced_s']:.1f} s, (c) "
+        f"{ranks[0]['fed_train_s']:.1f} s); {ranks[0]['bf16']}")
+
+    # (a) command-r
+    cfg = zoo_config(TP_ARCH, "flash", TP_LAYERS)
+    want = zoo_expected(cfg)
+    B, S = SERVE_BATCH, PROMPT_LEN
+    logits_rows = []
+    for res in ranks:
+        a, r = res["command_r"], res["rank"]
+        if a["served_launches"] != want or a["per_prefill"] != want \
+                or a["per_step"]:
+            raise RuntimeError(
+                f"rank {r}: {TP_ARCH} launches {a['served_launches']} in "
+                f"serve, {a['per_prefill']} a prefill, {a['per_step']} a "
+                f"decode step; expected {want} a prefill, none a step")
+        if not a["finite"]:
+            raise RuntimeError(f"rank {r}: non-finite {TP_ARCH} logits")
+        e_got, e_plain, e_bad = a["errors"]
+        bound = [LOGITS_FACTOR * e for e in e_plain]
+        within = lambda e: e[0] <= bound[0] and e[1] <= bound[1]
+        pre, dec = a["prefill_collectives"], a["decode_collectives"]
+        log(f"  (a) rank {r}: {TP_ARCH} at full width, {a['layers']} of 64 "
+            f"layers, bf16, flash, m = {TP_RANKS}, batch {B} x {S}: "
+            f"launches {({k: n for k, n in a['per_prefill'].items() if n})} "
+            f"a prefill, none a decode step; "
+            f"warm prefill {a['prefill_s']:.3f} s = {B * S / a['prefill_s']:,.0f} "
+            f"tokens/s ({pre['all_reduce']} model-axis all-reduces, "
+            f"{pre['bytes'] / 2**20:.1f} MiB, {pre['seconds']:.3f} s = "
+            f"{pre['seconds'] / a['prefill_s']:.3f} of it); decode "
+            f"{a['step_s'] * 1e3:.3f} ms/step ({dec['all_reduce'] // WARM_STEPS} "
+            f"all-reduces a step, {dec['seconds'] / WARM_STEPS * 1e3:.3f} "
+            f"ms = {dec['seconds'] / (a['step_s'] * WARM_STEPS):.3f} of it; "
+            f"gloo through host memory, not NVLink); memory high-water mark "
+            f"{a['peak'] / 2**30:.2f} GiB; prefill logits (std "
+            f"{a['ref_std']:.3f}) against the model with attention in f32, "
+            f"max_abs_err / relative norm: flash {e_got[0]:.3e} / "
+            f"{e_got[1]:.3e}, chunked {e_plain[0]:.3e} / {e_plain[1]:.3e}, "
+            f"rank {TP_WO_FAULT_RANK}'s wo partial dropped {e_bad[0]:.3e} / "
+            f"{e_bad[1]:.3e}; bound {LOGITS_FACTOR:g}x chunked's; {card}")
+        if not within(e_got):
+            raise RuntimeError(f"rank {r}: {TP_ARCH}'s sharded flash logits "
+                               f"are further from attention in f32 than "
+                               f"the chunked path's error allows")
+        if within(e_bad):
+            raise RuntimeError(f"rank {r}: the logits' bound does not see a "
+                               f"dropped wo partial")
+        logits_rows.append(e_got)
+
+    # (b) the reduced configs
+    for label, cfg_b, *_ in cases:
+        want_b = zoo_expected(cfg_b)
+        for res in ranks:
+            lg, launches = res["reduced"][label]
+            if launches != want_b:
+                raise RuntimeError(f"rank {res['rank']}: {label} reduced "
+                                   f"launches {launches}, expected {want_b}")
+            worst = 0.0
+            for x, y in zip(lg, plain[label], strict=True):
+                worst = max(worst, max_abs_err(x, y))
+                torch.testing.assert_close(x, y, **REDUCED_TOL)
+        path = ("expert parallel" if cfg_b.n_experts else
+                "ssd_intra_chunk on the rank's heads"
+                if cfg_b.family in ("ssm", "hybrid") else "tensor parallel")
+        log(f"  (b) {label} reduced in f32 at m = {TP_RANKS} ({path}) on "
+            f"both ranks against the CPU's unsharded plain path: logits "
+            f"max_abs_err {worst:.3e} (rtol {REDUCED_TOL['rtol']:g}, atol "
+            f"{REDUCED_TOL['atol']:g}); launches per rank "
+            f"{({k: n for k, n in want_b.items() if n})}")
+
+    # (c) fed_train --data 1 --model 2 against step 9e's run (records), and
+    # its first span in f32 against the same span unsharded on the card
+    ft_cfg = get_config(TRAIN_ARCH)
+    full_f32 = fed_train_f32_first_span([])
+    _, sch, seen = tp_fed_train_run(FED_TRAIN_ARGS + [
+        "--rounds", str(FED_TRAIN_REDUCED_ROUNDS)])
+    unsharded_reduced = dict(first=seen["first"],
+                             records=fed_records(sch.history))
+    rd_cfg = get_config(TRAIN_ARCH).reduced()
+    w0_reduced = {k: v.cpu() for k, v in LMTask(rd_cfg, seq_len=64)
+                  .init_params(0, device=dev).items()}
+    del seen, sch
+    torch.cuda.empty_cache()
+    # fed_train's draws: seed 0 on the card, bf16 and f32
+    w0 = {k: v.cpu() for k, v in LMTask(ft_cfg, seq_len=64).init_params(
+        0, device=dev).items()}
+    w0_f32 = {k: v.cpu() for k, v in LMTask(dataclasses.replace(
+        ft_cfg, dtype="float32"), seq_len=64).init_params(0, device=dev)
+        .items()}
+    worst_raw = worst_kept = worst_bf16 = 0.0
+    worst_f32 = worst_planted = 0.0
+    R = FED_TRAIN_ROUNDS
+    for res in ranks:
+        c, r = res["fed_train"], res["rank"]
+        # the reduction over the federation axis: weighted_agg's kernel
+        # through its sharded wrapper (the one-rank NCCL group)
+        want_c = expected_launches(masked_sgd=R * c["E"] * c["leaves"],
+                                   weighted_agg_sharded=R)
+        outside = {k: n - c["in_spans"][k] for k, n in c["all"].items()}
+        want_out = expected_launches(
+            ssd_intra_chunk=c["probes"] * ft_cfg.n_layers)
+        if c["in_spans"] != want_c or outside != want_out:
+            raise RuntimeError(f"rank {r}: fed_train launches "
+                               f"{c['in_spans']} in the spans, {outside} "
+                               f"outside; expected {want_c}, {want_out}")
+        if c["events"] != 1:
+            raise RuntimeError(f"rank {r}: fed_train applied {c['events']} "
+                               f"events")
+        for a, b in zip(c["records"], fed_train_run["records"], strict=True):
+            if a[:4] != b[:4] or not np.array_equal(a[4], b[4]):
+                raise RuntimeError(f"rank {r}: fed_train's record at tau "
+                                   f"{a[0]} differs from the unsharded run's")
+        row = _Rank(TP_RANKS, r)
+        cut = lambda t: flatten_tree(shard_params(unflatten_tree(t), ft_cfg,
+                                                  row))
+        # full width (bf16) against 9e's first span: reported (the
+        # roundings of a bf16 round in two summation orders are far above
+        # TRAIN_DELTA_TOL; f32 is held below, see TP_FULL_DELTA_TOL)
+        want_p, start = cut(fed_train_run["first"]), cut(w0)
+        for name, p in c["first"].items():
+            _, _, _, norm = gaps = delta_gap(p, want_p[name], start[name],
+                                             c["E"] + 1)
+            worst_bf16 = max(worst_bf16, gaps[0] / norm if norm else gaps[0])
+        # full width in f32: held to TP_FULL_DELTA_TOL, and the planted
+        # dropped out_proj reduce must fall outside it
+        want_p, start = cut(full_f32), cut(w0_f32)
+        ratios = {}
+        for what in ("f32", "f32_planted"):
+            ratios[what] = {}
+            for name, p in c[what].items():
+                raw, _, _, norm = delta_gap(p, want_p[name], start[name],
+                                            c["E"] + 1)
+                ratios[what][name] = raw / norm if norm else raw
+        bad = {k: v for k, v in ratios["f32"].items()
+               if v > TP_FULL_DELTA_TOL}
+        if bad:
+            raise RuntimeError(f"rank {r}: fed_train's first round at full "
+                               f"width in f32 is outside TP_FULL_DELTA_TOL "
+                               f"{TP_FULL_DELTA_TOL:g} of the unsharded "
+                               f"round's: {bad}")
+        planted = max(ratios["f32_planted"].values())
+        if planted <= TP_FULL_DELTA_TOL:
+            raise RuntimeError(f"rank {r}: TP_FULL_DELTA_TOL does not see "
+                               f"a dropped out_proj reduce ({planted:.3e})")
+        worst_f32 = max(worst_f32, max(ratios["f32"].values()))
+        worst_planted = max(worst_planted, planted)
+        # the reduced config (f32): held as step 9e holds its card run
+        red = c["reduced"]
+        for a, b in zip(red["records"], unsharded_reduced["records"],
+                        strict=True):
+            if a[:4] != b[:4] or not np.array_equal(a[4], b[4]):
+                raise RuntimeError(f"rank {r}: the reduced fed_train's "
+                                   f"record at tau {a[0]} differs from the "
+                                   f"unsharded run's")
+        cut_r = lambda t: flatten_tree(shard_params(unflatten_tree(t),
+                                                    rd_cfg, row))
+        want_p, start = cut_r(unsharded_reduced["first"]), cut_r(w0_reduced)
+        for name, p in red["first"].items():
+            raw, kept, share, norm = delta_gap(p, want_p[name], start[name],
+                                               c["E"] + 1)
+            worst_raw = max(worst_raw, raw / norm if norm else raw)
+            worst_kept = max(worst_kept, kept / norm if norm else kept)
+            if kept > TRAIN_DELTA_TOL * norm:
+                raise RuntimeError(f"rank {r}: the reduced fed_train's {name} "
+                                   f"after the first span {kept:.3e} from "
+                                   f"the unsharded run's (delta norm "
+                                   f"{norm:.3e}, flips {share:.4f})")
+        log(f"  (c) rank {r}: fed_train --full --arch {TRAIN_ARCH} --data 1 "
+            f"--model {TP_RANKS}, {R} rounds in {c['wall_s']:.2f} s: launches "
+            f"in the spans {({k: n for k, n in c['in_spans'].items() if n})} "
+            f"(masked_sgd E x {c['leaves']} leaves and weighted_agg_sharded "
+            f"once a round per rank), outside "
+            f"{({k: n for k, n in outside.items() if n})}; "
+            f"round records equal to step 9e's unsharded run; warm "
+            f"{c['warm_rounds_per_s']:.3f} rounds/s (gloo model axis); "
+            f"memory high-water mark {c['peak'] / 2**30:.2f} GiB")
+    log(f"  (c) the reduced config in f32, {FED_TRAIN_REDUCED_ROUNDS} rounds, "
+        f"against the same run unsharded on the card: records equal, first "
+        f"span's largest leaf ratio {worst_raw:.3e} raw, {worst_kept:.3e} "
+        f"after the ulp flips (TRAIN_DELTA_TOL {TRAIN_DELTA_TOL:g}); the "
+        f"first round at full width in f32 against the same round "
+        f"unsharded on the card: largest raw leaf ratio {worst_f32:.3e} "
+        f"(TP_FULL_DELTA_TOL {TP_FULL_DELTA_TOL:g}), with the out_proj "
+        f"reduce dropped {worst_planted:.3e} (caught); reported: the full "
+        f"width's (bf16) against step 9e's run {worst_bf16:.3e}")
+
+    # copied KV heads
+    copies = tp_launch(out_dir, TP_COPY_RANKS, "copies")
+    plain_c = plain[TP_COPY_ARCH]
+    for res in copies:
+        for x, y in zip(res["copies"]["local"], plain_c, strict=True):
+            torch.testing.assert_close(x, y, **REDUCED_TOL)
+        bad = max(max_abs_err(x, y) for x, y in
+                  zip(res["copies"]["planted"], plain_c))
+        if bad <= REDUCED_TOL["atol"] + REDUCED_TOL["rtol"] * max(
+                y.abs().max().item() for y in plain_c):
+            raise RuntimeError("a copied KV head cut from the wrong offset "
+                               "passes the CPU comparison")
+    log(f"  copied KV heads: {TP_COPY_ARCH} reduced (2 KV heads) over "
+        f"{TP_COPY_RANKS} ranks against the CPU within REDUCED_TOL on every "
+        f"rank; rank {TP_COPY_FAULT_RANK}'s head from the wrong offset "
+        f"{bad:.3e} off (caught)")
+    for f in out_dir.glob("rank*.pt"):
+        f.unlink()
+    return dict(
+        flash=ranks[0]["command_r"]["per_prefill"]["flash_attention"],
+        ssd={label: ranks[0]["reduced"][label][1]["ssd_intra_chunk"]
+             for label, cfg_b, *_ in cases
+             if cfg_b.family in ("ssm", "hybrid")},
+        masked_sgd=ranks[0]["fed_train"]["in_spans"]["masked_sgd"] // R,
+        weighted_agg_sharded=ranks[0]["fed_train"]["in_spans"][
+            "weighted_agg_sharded"] // R,
+        command_r={k: ranks[0]["command_r"][k] for k in
+                   ("prefill_s", "step_s", "peak")},
+        card=card)
+
+
 def phase(label: str, fn, *args, **kw):
     """fn(*args, **kw), its wall seconds logged under ``label``."""
     t0 = time.perf_counter()
@@ -5362,6 +6027,10 @@ def phase(label: str, fn, *args, **kw):
 
 def main() -> None:
     import_port()
+    if sys.argv[1:2] == ["--tp-worker"]:
+        # one rank of step 9f, started through repro_torch.launch.cluster
+        tp_worker(*sys.argv[2:4])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
@@ -5450,7 +6119,10 @@ def main() -> None:
                      {"flash_attention": planted,
                       "ssd_intra_chunk": planted_ssd}, card)
     train_row = phase("9d training", train_path, dev, card)
-    fed_train_rows = phase("9e fed_train", fed_train_path, dev, card)
+    fed_train_rows, fed_train_run = phase("9e fed_train", fed_train_path,
+                                          dev, card)
+    tp_row = phase("9f model axis", tp_path, dev, card, fed_train_run)
+    del fed_train_run
     phase("10 checkpoint", checkpoint_path, dev, len(leaves), card)
     uncut = phase("11 scenarios", scenario_path, dev, card)
     phase("12 bank", bank_path, dev, card, len(leaves), uncut)
@@ -5480,10 +6152,15 @@ def main() -> None:
         return paths
     def fed_train_paths(kernel):
         """The fed_train rounds' launches of the kernel per round, by
-        wire."""
-        return {f"fed_train {r['arch']} {r['wire']} (a round)":
-                r["launches_per_round"][kernel]
-                for r in fed_train_rows if kernel in r["launches_per_round"]}
+        wire, and per rank of the model-axis run."""
+        paths = {f"fed_train {r['arch']} {r['wire']} (a round)":
+                 r["launches_per_round"][kernel]
+                 for r in fed_train_rows if kernel in r["launches_per_round"]}
+        if kernel == "masked_sgd":
+            paths[f"fed_train {TRAIN_ARCH} --data 1 --model {TP_RANKS} "
+                  f"(a round, per rank)"] = tp_row[kernel]
+        return paths
+    tp_label = f"m = {TP_RANKS}, per rank"
     time_ssd_head_blocks(dev)
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
@@ -5504,7 +6181,10 @@ def main() -> None:
              launches=sharded_launches["f32"]["weighted_agg_sharded"],
              max_abs_err=sharded_errs["weighted_agg_sharded"],
              library_ms=None, **sharded_row(
-                 sharded_t["weighted_agg_sharded"])),
+                 sharded_t["weighted_agg_sharded"]),
+             other_paths={f"fed_train {TRAIN_ARCH} --data 1 --model "
+                          f"{TP_RANKS} (a round, per rank)":
+                          tp_row["weighted_agg_sharded"]}),
         dict(name="weighted_agg_quant_sharded", route="cuda",
              source=f"{csrc}/weighted_agg_quant.cu",
              replaces="src/repro/kernels/weighted_agg.py:254",
@@ -5523,7 +6203,9 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention.py:64",
              launches=serve_launches["flash_attention"],
              max_abs_err=flash_err, **flash_t,
-             other_paths=by_path("flash_attention"),
+             other_paths={**by_path("flash_attention"),
+                          f"{TP_ARCH} ({TP_LAYERS} layers, {tp_label})":
+                          tp_row["flash"]},
              other_shapes=[dict(q_k_v=list(FLASH_GEMMA), dtype="bf16",
                                 causal=True, **flash_gemma_t),
                            dict(q_k_v=list(FLASH_LLAVA), dtype="bf16",
@@ -5534,7 +6216,10 @@ def main() -> None:
              source=f"{csrc}/ssd_intra_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:43",
              launches=ssm_launches["ssd_intra_chunk"], max_abs_err=ssd_err,
-             **ssd_t, other_paths=by_path("ssd_intra_chunk"),
+             **ssd_t, other_paths={
+                 **by_path("ssd_intra_chunk"),
+                 **{f"{k} reduced ({tp_label})": n
+                    for k, n in tp_row["ssd"].items()}},
              other_shapes=[dict(cells_q_n_p=list(SSD_HYMBA[0][:5]),
                                 dtype="f32", **ssd_hymba_t)]),
     ]

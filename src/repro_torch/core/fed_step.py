@@ -139,10 +139,17 @@ def local_sgd(loss_fn: Callable, params: Params, batches, alpha: torch.Tensor,
     return deltas
 
 
-def _squares(deltas: Params) -> torch.Tensor:
+def _squares(deltas: Params, weights=None) -> torch.Tensor:
     """sum over leaves of sum(x^2), leaf by leaf in name order, as the
-    reference sums its pytree's leaves."""
-    return sum(deltas[name].square().sum() for name in sorted(deltas))
+    reference sums its pytree's leaves; with ``weights`` ({name: 1 / the
+    model ranks holding each element}) each leaf's squares weighted, for
+    a sum over a model axis that counts every element once."""
+    if weights is None:
+        return sum(deltas[name].square().sum() for name in sorted(deltas))
+    return sum((deltas[name].square().reshape(-1, deltas[name].shape[-1])
+                * torch.as_tensor(weights[name], dtype=torch.float32,
+                                  device=deltas[name].device)).sum()
+               for name in sorted(deltas))
 
 
 def fed_round_parallel(loss_fn: Callable, params: Params, batches,
@@ -150,7 +157,8 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
                        eta: torch.Tensor, *, agg: str = "tree",
                        compression=None,
                        model_kind: Optional[str] = None,
-                       sharding=None, with_metrics: bool = False):
+                       sharding=None, with_metrics: bool = False,
+                       norm_weights=None):
     """batches: dict of (C, E, ...) tensors; alpha: (C, E); coeffs: (C,).
     Returns (new params, metrics); the new params are written into
     ``params`` in place.
@@ -171,6 +179,11 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
     coeffs are then this rank's share of the client axis, and the
     aggregation sums every rank's deltas into the replicated params.
 
+    Over a grid with a model axis (``sharding.mesh``) the params and
+    deltas are the rank's shards and the reduction sums each shard over
+    the federation axis alone; ``norm_weights`` (the engine's) then count
+    each element of the norm once over the model axis.
+
     metrics: ``delta_norm``, the L2 norm of all clients' deltas with
     ``with_metrics`` (under sharding, of every rank's), else 0.0.  As in
     the reference, this round takes the norm of the raw deltas, before
@@ -180,7 +193,9 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
     metrics = {"delta_norm": 0.0}
     if with_metrics:
         # before the aggregation, which may reuse the delta buffers
-        dn2 = _squares(deltas)
+        dn2 = _squares(deltas, norm_weights)
+        if norm_weights is not None:
+            dn2 = _model_sum(dn2, sharding)
         if sharding is not None:
             dn2 = sharding.all_reduce(dn2)
         metrics["delta_norm"] = dn2.sqrt()
@@ -195,6 +210,12 @@ def fed_round_parallel(loss_fn: Callable, params: Params, batches,
     else:
         new = aggregate_deltas(params, deltas, coeffs, sharding=sharding)
     return new, metrics
+
+
+def _model_sum(t: torch.Tensor, sharding) -> torch.Tensor:
+    """``t`` summed over the model axis of ``sharding``'s grid."""
+    from repro_torch.models.sharding import _all_reduce, model_axis
+    return _all_reduce(t.clone(), model_axis(sharding.mesh))
 
 
 def fed_round_sequential(loss_fn: Callable, params: Params, batches,

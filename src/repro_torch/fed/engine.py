@@ -54,11 +54,24 @@ alpha, the batch indices and the coefficients cut (``FedSharding.shard``).
 So a sharded draw equals the unsharded one.  Each rank trains its own
 clients and the aggregation ends in one all-reduce, so the params stay
 replicated and the metrics are the whole federation's on every rank.
+
+Over a process grid with a model axis (``FedSharding(mesh=grid)``, the
+reference's ``fed/engine.py:431-437``): the task's specs
+(``task.param_specs``) with the federation axes stripped, which leaves
+pure tensor parallelism in client-parallel mode, cut each leaf over
+``model`` (``FedSharding.put_params``; full params are cut at the first
+span, the rank's shards pass as they are), the rounds run under the grid
+(``models.sharding.use_mesh``), so each client's local steps are TP/EP
+over the model axis and ``masked_sgd`` updates the rank's own leaves,
+and the aggregation reduces the rank's shard of the client deltas, then
+sums it over the federation axis: the params stay sharded over
+``model``.  The client-sequential round is not sharded yet.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import os
 from typing import Dict, Optional
 
@@ -72,6 +85,7 @@ from repro_torch.core.fed_step import (fed_round_parallel,
                                        fed_round_sequential)
 from repro_torch.device import resolve_device
 from repro_torch.fed.task import ArrayTask
+from repro_torch.models.sharding import copies_weight, local_shape, use_mesh
 from repro_torch.obs.telemetry import resolve as resolve_telemetry
 
 Params = Dict[str, torch.Tensor]
@@ -204,7 +218,9 @@ class RoundEngine:
                              f"client_sequential, got {mode!r}")
         if mode == "client_sequential" and sharding is not None:
             raise ValueError("the client-sequential round is not sharded "
-                             "yet (ROADMAP item 6): pass sharding= with "
+                             "yet (ROADMAP item 6's next step: the "
+                             "client-sequential round under sharding, FSDP "
+                             "over the data axis): pass sharding= with "
                              "mode='client_parallel'")
         self.mode = mode
         self.with_metrics = with_metrics
@@ -301,6 +317,10 @@ class RoundEngine:
             labelnames=("wire",))
         self._d_total: Optional[int] = None
         self._traces_written = 0
+        self._pspecs = None
+        self._pspecs_built = False
+        self._full = None
+        self._norm_weights = None
 
     def _client_rows(self, client):
         """The task's per-sample arrays for one client, shape-checked
@@ -442,6 +462,59 @@ class RoundEngine:
             self.s_cdf[slot] = torch.from_numpy(
                 trace_cdf_row(trace, self.E)).to(self.device)
 
+    # -- the model axis ---------------------------------------------------------
+    @property
+    def model_sharded(self) -> bool:
+        """Whether the params are cut over a model axis of several ranks."""
+        return self.sharding is not None and \
+            getattr(self.sharding, "model_ranks", 1) > 1
+
+    def _param_specs(self, params):
+        """The task's per-leaf specs (None: replicated), resolved once.
+        client_parallel gives each federation rank its own clients, so a
+        param spec may not also claim the federation axes (FSDP): they are
+        stripped, leaving pure TP ('model') sharding."""
+        if not self._pspecs_built:
+            specs = self.task.param_specs(params)
+            if specs is not None and self.sharding is not None:
+                fed = set(self.sharding.axes)
+
+                def strip(entry):
+                    if entry is None:
+                        return None
+                    if isinstance(entry, (tuple, list)):
+                        kept = tuple(a for a in entry if a not in fed)
+                        if not kept:
+                            return None
+                        return kept[0] if len(kept) == 1 else kept
+                    return None if entry in fed else entry
+
+                specs = {k: tuple(strip(e) for e in v)
+                         for k, v in specs.items()}
+            self._pspecs = specs
+            self._pspecs_built = True
+        return self._pspecs
+
+    def place_params(self, params: Params) -> Params:
+        """Under a model axis, this rank's shards of ``params`` (full leaves
+        cut, the rank's shards kept); otherwise ``params``."""
+        if not self.model_sharded:
+            return params
+        specs = self._param_specs(params)
+        if specs is None:
+            return params
+        if self._full is None:
+            self._full = self.task.full_shapes()
+            m = self.sharding.model_ranks
+            self._norm_weights = {
+                k: copies_weight(k, local_shape(
+                    k, self._full[k], self.sharding.param_sharding(v),
+                    self.task.cfg, {"model": m}),
+                    self.sharding.param_sharding(v), self.task.cfg, m)
+                for k, v in specs.items()}
+        return self.sharding.put_params(params, specs, cfg=self.task.cfg,
+                                        full=self._full)
+
     # -- one round ------------------------------------------------------------
     def _round_core(self, params, alpha, idx, tau, p, rb_tau0, rb_boost,
                     lr_shift: int):
@@ -469,7 +542,8 @@ class RoundEngine:
                 self.loss_fn, params, batches, alpha, coeffs, eta,
                 agg=self.agg, compression=self.compression,
                 model_kind=self.model_kind, sharding=self.sharding,
-                with_metrics=self.with_metrics)
+                with_metrics=self.with_metrics,
+                norm_weights=self._norm_weights)
         return params, s, eta, m["delta_norm"]
 
     # -- host entry point -----------------------------------------------------
@@ -509,14 +583,18 @@ class RoundEngine:
             return params, {"s": torch.zeros((0, self.capacity), device=dev),
                             "eta": torch.zeros(0, device=dev),
                             "delta_norm": torch.zeros(0, device=dev)}
+        params = self.place_params(params)
         if self._d_total is None:
             # the model's size in floats, for account_uploads
-            self._d_total = sum(int(v.numel()) for v in params.values())
+            self._d_total = (sum(math.prod(s) for s in self._full.values())
+                             if self._full is not None else
+                             sum(int(v.numel()) for v in params.values()))
         tel = self.telemetry
         self._m_spans.inc()
         self._m_rounds.inc(n_rounds)
+        grid = getattr(self.sharding, "mesh", None)
         with tel.span("engine.run_span", tau=tau_start, rounds=n_rounds), \
-                self._profiled(tau_start, n_rounds):
+                self._profiled(tau_start, n_rounds), use_mesh(grid):
             return self._run_span(params, tau_start, n_rounds, p=p,
                                   lr_shift_tau=lr_shift_tau,
                                   reboot_tau0=reboot_tau0,

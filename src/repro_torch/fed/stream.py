@@ -603,6 +603,10 @@ class StreamScheduler:
         if client_chunks is None:
             client_chunks = self.bank is not None
         eng = self.engine
+        if getattr(eng, "model_sharded", False):
+            raise NotImplementedError(
+                "saving params sharded over a model axis: each rank holds "
+                "only its shards (gather them first)")
         save_fed_checkpoint(
             path, eng.task.disk_params(self.params, eng.model_kind),
             self.state.to_dict(),

@@ -28,10 +28,12 @@ import torch
 from repro_torch import params as layout
 from repro_torch.configs.paper import PAPER_CONFIGS
 
-from repro_torch.core.fed_step import flatten_tree, per_client_loss
+from repro_torch.core.fed_step import (flatten_tree, per_client_loss,
+                                       unflatten_tree)
 from repro_torch.data.tokens import client_token_stream
 from repro_torch.models import transformer
 from repro_torch.models.params import init_params
+from repro_torch.models.sharding import tree_param_specs
 
 __all__ = ["BufferSpec", "ClientTask", "ArrayTask", "LMTask"]
 
@@ -55,8 +57,8 @@ class ClientTask:
     make_batch(g)    — map gathered buffers (each (..., B) + spec.shape)
                        to the loss_fn batch.
     init_params(key) — fresh parameter dict.
-    param_specs(p)   — per-leaf placement specs, or None to replicate (the
-                       paper models; the port shards no params yet).
+    param_specs(p)   — per-leaf placement specs ({name: spec}), or None
+                       to replicate (the paper models).
     disk_params(p, kind), params_from_disk(p, kind, device)
                      — the params as ``checkpoint.io`` stores them in the
                        reference's layout, and back (default: the paper
@@ -123,8 +125,11 @@ class LMTask(ClientTask):
     shift.  ``loss_fn`` is the engine's (C,)-per-client loss over the flat
     leaves of ``core.fed_step.flatten_tree``; ``client_loss`` is one
     client's scalar ``transformer.train_loss`` over the nested tree.
-    ``fsdp`` is recorded as given: the port shards no params yet (ROADMAP
-    item 6), so ``param_specs`` is None."""
+    ``param_specs`` gives each leaf's spec of the rule table
+    (``models.sharding.tree_param_specs`` with the task's ``fsdp``), keyed
+    as the leaves; the engine keeps their model axis under a sharding over
+    a grid (``fed.sharding``), and ``full_shapes`` the leaves' unsharded
+    shapes it cuts them from."""
 
     def __init__(self, cfg, *, seq_len: int = 128, fsdp: bool = True):
         self.cfg = cfg
@@ -141,6 +146,16 @@ class LMTask(ClientTask):
         """One client's training loss: params the nested tree, batch
         without a client axis."""
         return transformer.train_loss(params, self.cfg, batch)
+
+    def param_specs(self, params):
+        """{leaf name: spec} of the rule table for the flat leaves."""
+        return flatten_tree(tree_param_specs(unflatten_tree(params),
+                                             fsdp=self.fsdp))
+
+    def full_shapes(self):
+        """{leaf name: shape} of the unsharded leaves (the meta device)."""
+        return {k: tuple(v.shape) for k, v in flatten_tree(init_params(
+            self.cfg, device="meta")).items()}
 
     def client_arrays(self, client):
         t = np.asarray(client.x, np.int32)

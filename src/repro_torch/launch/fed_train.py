@@ -22,10 +22,23 @@ unless ``cpu``).  The fleet, its token streams and the probe batch are the
 reference's numpy draws from ``--seed``; the weights are the port's own
 draw (``models.params.init_params``).  ``--chunk-size`` is accepted and
 has no effect (the port runs a span's rounds one after another).
-``--data N`` shards the client axis over the N ranks of a
-``torch.distributed`` group the caller has initialised
-(``fed.make_fed_sharding``), client-parallel only; ``--model``, ``--pod``
-and a sharded client-sequential round wait for ROADMAP item 6.
+``--data D --model M [--pod P]`` lay a (data, model) or (pod, data,
+model) grid (``launch.mesh``) over the ranks of a ``torch.distributed``
+world the caller has initialised (``launch.cluster``), as the reference
+lays its mesh: the clients shard over data (pod x data with ``--pod``)
+and each client's local epochs run tensor and expert parallel over
+``model``, the params staying sharded over it.  ``--model``/``--pod``
+without ``--data`` are the reference's error.  Client-parallel only: the
+client-sequential round under sharding (FSDP over data) is ROADMAP item
+6's next step.  The grid's groups take the world's backend, or the
+per-axis backends ``launch.cluster --axis-backends`` set.  Each run
+takes a rendezvous file of its own (two runs on one file would join one
+process group)::
+
+  PG=${TMPDIR:-/tmp}/pg-$$
+  python -m repro_torch.launch.cluster --coordinator file://$PG \\
+      --num-processes 4 --process-id $R --backend gloo -- \\
+      python -m repro_torch.launch.fed_train --data 2 --model 2 --device cpu
 """
 from __future__ import annotations
 
@@ -40,11 +53,14 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.fed_step import unflatten_tree
 from repro_torch.core.participation import TRACES
 from repro_torch.device import resolve_device
-from repro_torch.fed import (Arrival, Client, LMTask, StreamScheduler,
-                             make_fed_sharding)
+from repro_torch.fed import (Arrival, Client, FedSharding, LMTask,
+                             StreamScheduler)
+from repro_torch.launch.mesh import make_grid
 from repro_torch.models.params import param_count
+from repro_torch.models.sharding import use_mesh
 
-ITEM_6 = "waits for model-sharded params and composite axes (ROADMAP item 6)"
+ITEM_6 = ("waits for the client-sequential round under sharding, FSDP over "
+          "the data axis (ROADMAP item 6's next step)")
 
 
 def build_fleet(task, *, n_clients: int, samples: int, seed: int,
@@ -58,20 +74,19 @@ def build_fleet(task, *, n_clients: int, samples: int, seed: int,
 
 
 def _sharding(args, mode: str):
-    """The federation axis: None, or the ranks of the caller's group."""
-    if args.model > 1 or args.pod:
-        raise ValueError(f"--model {args.model} --pod {args.pod}: a model "
-                         f"axis or a pod axis {ITEM_6}")
+    """The federation axis over the grid the flags lay, or None (the
+    reference's ``fed_train.py:98-110``)."""
     if not args.data:
         return None
     if mode != "client_parallel":
         raise ValueError(f"--data {args.data} with --mode {mode}: the "
-                         f"client-sequential round under sharding {ITEM_6}")
-    sharding = make_fed_sharding()
-    if sharding.n_shards != args.data:
-        raise ValueError(f"--data {args.data}, but the process group has "
-                         f"{sharding.n_shards} ranks")
-    return sharding
+                         f"sharded client-sequential round {ITEM_6}")
+    if args.pod:
+        grid = make_grid((args.pod, args.data, args.model),
+                         ("pod", "data", "model"))
+        return FedSharding(mesh=grid, axis=("pod", "data"))
+    grid = make_grid((args.data, args.model), ("data", "model"))
+    return FedSharding(mesh=grid, axis="data")
 
 
 def main(argv=None) -> dict:
@@ -102,12 +117,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--full", action="store_true",
                     help="full config (the card)")
     ap.add_argument("--data", type=int, default=0,
-                    help="federation axis: the ranks of an initialised "
-                         "torch.distributed group; 0 = unsharded")
+                    help="grid 'data' (federation) axis over the ranks of "
+                         "an initialised torch.distributed world; 0 = no "
+                         "grid")
     ap.add_argument("--model", type=int, default=1,
-                    help="model axis (ROADMAP item 6; only 1)")
+                    help="grid 'model' (tensor/expert parallel) axis size")
     ap.add_argument("--pod", type=int, default=0,
-                    help="pod axis (ROADMAP item 6; only 0)")
+                    help="leading 'pod' axis size for a composite "
+                         "(pod x data) federation; 0 = no pod axis")
     ap.add_argument("--arrive", type=int, default=0,
                     help="admit this many brand-new clients mid-run "
                          "(streaming arrivals at round rounds//2)")
@@ -121,14 +138,23 @@ def main(argv=None) -> dict:
     if not args.full:
         cfg = cfg.reduced()
     mode = args.mode or cfg.fed.mode
+    if not args.data and (args.model > 1 or args.pod):
+        ap.error("--model/--pod need --data (the mesh is built only for "
+                 "a nonzero federation axis); e.g. --data 1 --model 2")
     device = resolve_device(args.device)
     sharding = _sharding(args, mode)
+    grid = None if sharding is None else sharding.mesh
 
     task = LMTask(cfg, seq_len=args.seq, fsdp=(mode == "client_sequential"))
     clients = build_fleet(task, n_clients=args.clients,
                           samples=args.samples, seed=args.seed)
     params = task.init_params(args.seed, device=device)
     n_params = param_count(params)
+    if sharding is not None:
+        # every rank draws the full tree from the seed, then keeps its
+        # shards over the model axis
+        params = sharding.put_params(params, task.param_specs(params),
+                                     cfg=cfg)
 
     # probe loss: one fixed held-out batch of the first domain
     probe_rng = np.random.default_rng(args.seed + 1)
@@ -136,7 +162,7 @@ def main(argv=None) -> dict:
         probe_rng, n=4, domain=0)).to(device)})
 
     def evaluate(p):
-        with torch.no_grad():
+        with torch.no_grad(), use_mesh(grid):
             return (float(task.client_loss(unflatten_tree(p), probe)),
                     float("nan"))
 
@@ -160,12 +186,12 @@ def main(argv=None) -> dict:
         device=device)
 
     if not args.quiet:
-        axis = (f"{sharding.n_shards} ranks" if sharding is not None
-                else "single-device")
+        mesh_desc = dict(grid.shape) if grid is not None else \
+            "single-device"
         print(f"arch={cfg.name} params={n_params:,} mode={mode} "
               f"scheme={args.scheme} C={args.clients} "
               f"E={args.local_epochs} B={args.batch} S={args.seq} "
-              f"capacity={sch.engine.capacity} federation={axis} "
+              f"capacity={sch.engine.capacity} mesh={mesh_desc} "
               f"wire={sch.engine.compression.name} device={device}")
 
     t0 = time.perf_counter()

@@ -6,7 +6,14 @@ The reference's sharding constraints are the identity without a mesh and
 have no counterpart here.  Its ``_expand_kv`` (KV heads repeated to H so
 that GSPMD shards one head axis) is not needed either: both paths read the
 KV heads grouped, query head h reading KV head h // (H / KV), which is the
-same arithmetic.  Cache writes are made in place in the cache's tensors,
+same arithmetic.
+
+Under a model axis (``models.sharding``) each rank projects, attends and
+caches its own query heads and the KV heads they read (a copy of one KV
+head where the axis has more ranks than the model has KV heads, its
+gradient summed over the ranks holding it), and ``wo`` is row-parallel:
+one reduce, ``bo`` added after it.  Prefill with ``attn_impl="flash"``
+launches the kernel on the rank's heads.  Cache writes are made in place in the cache's tensors,
 where the reference returns updated copies: the cache of a full-size model
 is gigabytes, and the caller's cache is the one the next step reads.
 """
@@ -17,6 +24,8 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import scale_of
 from repro_torch.models.rotary import apply_rope
+from repro_torch.models.sharding import (copy_to_model, model_axis,
+                                         reduce_from_model, sum_copies)
 
 NEG_INF = -1e30
 
@@ -89,36 +98,56 @@ def decode_attention(q, k_cache, v_cache, pos_map, pos, *, window: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def gqa_project_qkv(p, x, cfg, positions):
-    """Projections are stored flattened (d, H*hd); reshape to heads here."""
+def _kv_weights(p, cfg, tp):
+    """wk, wv, bk, bv as this rank reads them: a copied KV head (model
+    axis wider than the KV heads) has its gradient summed over the ranks
+    holding it."""
+    names = [n for n in ("wk", "wv", "bk", "bv") if n in p]
+    KV = cfg.n_kv_heads
+    if tp is None or KV % tp.size == 0:
+        return {n: p[n] for n in names}
+    slot = tp.rank // (tp.size // KV)
+    return {n: sum_copies(p[n], p[n].ndim - 1, slot, KV, tp) for n in names}
+
+
+def gqa_project_qkv(p, x, cfg, positions, tp=None):
+    """Projections are stored flattened (d, H*hd); reshape to heads here
+    (the rank's heads under a model axis ``tp``)."""
     B, S = x.shape[0], x.shape[1]
     hd = cfg.head_dim
+    x = copy_to_model(x, tp)
+    kv = _kv_weights(p, cfg, tp)
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ kv["wk"]
+    v = x @ kv["wv"]
     if "bq" in p:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+        k = k + kv["bk"]
+        v = v + kv["bv"]
+    q = q.reshape(B, S, q.shape[-1] // hd, hd)
+    k = k.reshape(B, S, k.shape[-1] // hd, hd)
+    v = v.reshape(B, S, v.shape[-1] // hd, hd)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def gqa_attention(p, x, cfg, positions, cache=None, decode=False):
+def gqa_attention(p, x, cfg, positions, cache=None, decode=False, *,
+                  reduce: bool = True):
     """Full GQA block.  Returns (out, cache_or_None).
 
     positions: (S,) int absolute positions of the rows of x (decode: (1,)).
     cache (per layer): {"k": (B,Slots,KV*hd), "v": ..., "pos_map": (Slots,)},
-    written in place and returned.
+    written in place and returned (KV the rank's under a model axis).
+    reduce=False: under a model axis, the rank's partial output before the
+    reduce and without ``bo`` (the parallel residual reduces it together
+    with the FFN's).
     """
-    q, k, v = gqa_project_qkv(p, x, cfg, positions)
+    tp = model_axis()
+    q, k, v = gqa_project_qkv(p, x, cfg, positions, tp)
     B, S = q.shape[0], q.shape[1]
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    KV, hd = k.shape[2], cfg.head_dim
     # caches store the kv dim flattened (KV*hd), as the reference's do
     unflat = lambda c: c.view(B, c.shape[1], KV, hd)
     if decode:
@@ -154,6 +183,10 @@ def gqa_attention(p, x, cfg, positions, cache=None, decode=False):
             cache["pos_map"][write_slots] = positions[keep:].to(
                 cache["pos_map"].dtype)
     out = o.reshape(B, S, -1) @ p["wo"]
+    if tp is not None:
+        if not reduce:
+            return out, cache
+        out = reduce_from_model(out, tp)
     if "bo" in p:
         out = out + p["bo"]
     return out, cache

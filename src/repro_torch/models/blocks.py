@@ -1,20 +1,28 @@
 """Per-layer blocks, counterpart of ``repro/models/blocks.py``: dense (GQA
 or MLA attention + MLP, sequential or parallel residual), MoE (attention +
 routed experts), SSM (Mamba2) and hybrid (parallel attention and SSM heads,
-Hymba-style)."""
+Hymba-style).
+
+Under a model axis each block's attention, FFN, experts and SSM mixer
+reduce their own rank-partial outputs (``models.sharding``), but the
+parallel residual (command-r), whose attention and FFN read one input,
+makes one reduce of the two partials together."""
 from __future__ import annotations
 
 from repro_torch.models.attention import gqa_attention
 from repro_torch.models.common import apply_norm, mlp_apply, rmsnorm
 from repro_torch.models.mla import mla_attention
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.sharding import model_axis, reduce_from_model
 from repro_torch.models.ssd import mamba_mixer
 
 
-def _attn(p, x, cfg, positions, cache, decode):
+def _attn(p, x, cfg, positions, cache, decode, reduce=True):
     if cfg.use_mla:
-        return mla_attention(p, x, cfg, positions, cache=cache, decode=decode)
-    return gqa_attention(p, x, cfg, positions, cache=cache, decode=decode)
+        return mla_attention(p, x, cfg, positions, cache=cache, decode=decode,
+                             reduce=reduce)
+    return gqa_attention(p, x, cfg, positions, cache=cache, decode=decode,
+                         reduce=reduce)
 
 
 def block_apply(p, x, cfg, kind, positions, cache=None, decode=False):
@@ -57,16 +65,29 @@ def block_apply(p, x, cfg, kind, positions, cache=None, decode=False):
             new_cache["attn"] = ca
         x = x + a
         h2 = apply_norm(x, p["ln2"], cfg)
-        y, aux_moe = moe_ffn(p["moe"], h2, cfg)
+        # the reference's rule for the expert-parallel path (with a model
+        # axis): serving, and the client-sequential round
+        ep = decode or bool(cache) or cfg.fed.mode == "client_sequential"
+        y, aux_moe = moe_ffn(p["moe"], h2, cfg, ep=ep)
         aux = aux + aux_moe
         x = x + y
 
     elif kind == "dense":
         h = apply_norm(x, p["ln1"], cfg)
-        a, ca = _attn(p["attn"], h, cfg, positions, cache.get("attn"), decode)
+        tp = model_axis() if cfg.parallel_residual else None
+        a, ca = _attn(p["attn"], h, cfg, positions, cache.get("attn"), decode,
+                      reduce=tp is None)
         if ca is not None:
             new_cache["attn"] = ca
-        if cfg.parallel_residual:
+        if tp is not None:
+            # one reduce of both partials; each bias once, after it
+            y = reduce_from_model(
+                a + mlp_apply(p["mlp"], h, cfg, reduce=False), tp)
+            for bias in (p["attn"].get("bo"), p["mlp"].get("b_down")):
+                if bias is not None:
+                    y = y + bias
+            x = x + y
+        elif cfg.parallel_residual:
             x = x + a + mlp_apply(p["mlp"], h, cfg)
         else:
             x = x + a

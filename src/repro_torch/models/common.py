@@ -12,6 +12,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding import (copy_to_model, model_axis,
+                                         reduce_from_model)
+
 
 class _RMSNorm(torch.autograd.Function):
     """The reference's ``custom_vjp``: f32 math inside, the saved input and
@@ -69,8 +72,17 @@ def activation_fn(name: str):
     raise ValueError(f"unknown activation {name}")
 
 
-def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Dense FFN: gated (SwiGLU/GeGLU) or plain 2-matmul."""
+def mlp_apply(p, x: torch.Tensor, cfg, *, reduce: bool = True) -> torch.Tensor:
+    """Dense FFN: gated (SwiGLU/GeGLU) or plain 2-matmul.
+
+    Under a model axis (``models.sharding``) the hidden is the rank's d_ff
+    block: w_gate, w_up and b_up column-parallel, w_down row-parallel and
+    reduced once, b_down added once after the reduce (before it, every
+    rank's copy would count).  ``reduce=False`` returns the rank's partial
+    product without b_down, for a caller that reduces it with another
+    (the parallel residual)."""
+    tp = model_axis()
+    x = copy_to_model(x, tp)
     act = activation_fn(cfg.activation)
     if cfg.gated_mlp:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
@@ -80,6 +92,10 @@ def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
             h = h + p["b_up"]
         h = act(h)
     y = h @ p["w_down"]
+    if tp is not None:
+        if not reduce:
+            return y
+        y = reduce_from_model(y, tp)
     if "b_down" in p:
         y = y + p["b_down"]
     return y

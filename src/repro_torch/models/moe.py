@@ -6,11 +6,19 @@ Router variants:
   sigmoid  (DeepSeek-V3): sigmoid scores, selection uses score + learned
            bias (aux-loss-free balancing), gates renormalised over top-k.
 
-The port has no device mesh, so ``moe_ffn`` is the reference's mesh-free
-path (``_moe_ffn_dense``), which the reference also takes whenever no mesh
-with a model axis is active, its ``ep=`` request included.  The
-expert-parallel ``_moe_ffn_ep`` needs a model axis over several cards and
-comes with the sharding slice.
+``moe_ffn`` takes the reference's mesh-free path (``_moe_ffn_dense``)
+without a grid, and the expert-parallel ``_moe_ffn_ep`` under a grid with
+a model axis where the caller asks for it (``ep=``, the reference's rule:
+serving and the client-sequential round) and always where the axis has
+several ranks, whose experts are each rank's own E/m: every rank routes
+all of its tokens, fills a local (E/m, cap + 1, d) buffer with the
+entries that chose its experts, at the slots the dense path gives them
+(the capacity from the global E), and one reduce over the model axis
+adds the ranks' outputs together with the shared expert's TP-sharded
+hidden.  The port does not split a client's or a request's tokens over
+the data axis, so each rank's tokens are all of them and the aux loss is
+the dense path's (the reference averages its per-data-shard aux over the
+batch axes, which here hold one shard).
 
 The dispatch is the reference's: entry (t, j) of the flattened (T*k,)
 top-k choices takes slot ``pos`` of its expert's buffer, pos being the
@@ -25,6 +33,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import activation_fn, mlp_apply
+from repro_torch.models.sharding import (copy_to_model, model_axis,
+                                         reduce_from_model)
 
 
 def _capacity(T: int, k: int, E: int, factor: float) -> int:
@@ -88,7 +98,17 @@ def _routing(xf, p, cfg):
     return top_i, gates, aux
 
 
-def moe_ffn(p, x, cfg):
+def moe_ffn(p, x, cfg, ep: bool = False):
+    """x: (..., d) -> (..., d), plus the scalar aux loss (f32).  With a
+    model axis and ``ep`` (or several model ranks), ``_moe_ffn_ep``;
+    otherwise the dense path.  ``p`` as ``_moe_ffn_dense``'s."""
+    tp = model_axis(single=True)
+    if tp is not None and (ep or tp.size > 1):
+        return _moe_ffn_ep(p, x, cfg, tp)
+    return _moe_ffn_dense(p, x, cfg)
+
+
+def _moe_ffn_dense(p, x, cfg):
     """x: (..., d) -> (..., d), plus the scalar aux loss (f32): the
     reference's mesh-free ``_moe_ffn_dense``.
 
@@ -127,4 +147,55 @@ def moe_ffn(p, x, cfg):
 
     if "shared" in p:
         y = y + mlp_apply(p["shared"], xf, cfg)
+    return y.reshape(orig_shape), aux
+
+
+def _moe_ffn_ep(p, x, cfg, tp):
+    """The expert-parallel path on the model axis ``tp``: the rank's
+    E/m experts (``p["experts"]`` its shards), ``p["shared"]``'s hidden
+    its d_ff block.  At one rank it is the dense path, op for op."""
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    xf = x.reshape(-1, d)
+    T = xf.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    E_l = E // tp.size
+    lo = tp.rank * E_l
+    top_i, gates, aux = _routing(xf, p, cfg)
+    sharded = tp.size > 1
+    if sharded:
+        # each rank's gate gradients are its experts' share
+        gates = copy_to_model(gates, tp)
+        xe = copy_to_model(xf, tp)
+    else:
+        xe = xf
+
+    cap = _capacity(T, k, E, cfg.capacity_factor)
+    fe = top_i.reshape(-1)                                 # (T*k,)
+    pos = _rank_in_expert(fe, E)          # the dense path's slots
+    keep = pos < cap
+    if sharded:
+        mine = (fe >= lo) & (fe < lo + E_l)
+        keep = keep & mine
+        fe = torch.where(mine, fe - lo, 0)  # others: the pad slot of 0
+    slot = torch.where(keep, pos, cap)                     # overflow -> pad
+
+    buf = torch.zeros(E_l, cap + 1, d, dtype=x.dtype, device=x.device)
+    buf.index_put_((fe, slot), xe.repeat_interleave(k, dim=0),
+                   accumulate=True)
+
+    act = activation_fn(cfg.activation)
+    ex = p["experts"]
+    h = act(torch.bmm(buf, ex["w_gate"])) * torch.bmm(buf, ex["w_up"])
+    out_buf = torch.bmm(h, ex["w_down"])
+
+    y_tok = out_buf[fe, slot]                              # (T*k, d)
+    y_tok = y_tok * (gates.reshape(-1, 1) * keep[:, None]).to(x.dtype)
+    y = y_tok.reshape(T, k, d).sum(1)
+
+    if "shared" in p:
+        # the shared expert's partial joins the same reduce
+        y = y + mlp_apply(p["shared"], xf, cfg, reduce=not sharded)
+    if sharded:
+        y = reduce_from_model(y, tp)
     return y.reshape(orig_shape), aux

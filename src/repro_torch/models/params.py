@@ -218,3 +218,32 @@ def param_count(params) -> int:
     if isinstance(params, dict):
         return sum(param_count(v) for v in params.values())
     return params.numel()
+
+
+def shard_params(params, cfg: ArchConfig, mesh):
+    """This rank's shards of a full parameter tree on the grid ``mesh``
+    (``launch.mesh``): each leaf cut over the model axis by the rule table
+    (``models.sharding.param_spec``, model entries only: FSDP over the
+    data axis is not the port's yet), each shard a tensor of its own, so
+    ``lm_from_jax`` then ``shard_params`` carries the reference's weights
+    to every rank.  Where the axis divides the sharded dim the shard is
+    the reference's NamedSharding shard, the rank's contiguous block; the
+    layout departs from it at copied KV heads and at the SSM's conv
+    channels (``models.sharding``'s docstring).  Raises where the heads,
+    KV heads or experts of ``cfg`` do not split over the axis."""
+    from repro_torch.models.sharding import (check_heads, leaf_index, take,
+                                             tree_param_specs)
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return params
+    check_heads(cfg, m)
+    sizes, coords = {"model": m}, {"model": mesh.coord("model")}
+
+    def walk(tree, specs, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, specs[k], f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        return take(tree, leaf_index(prefix, tree.shape, specs, cfg, sizes,
+                                     coords))
+
+    return walk(params, tree_param_specs(params, fsdp=False), "")

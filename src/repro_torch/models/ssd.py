@@ -15,6 +15,17 @@ Decode is the O(1) recurrence.  The reference's ``safe_concat`` (a GSPMD
 workaround) is a plain ``torch.cat`` here.  With a cache, the mixer writes
 the new conv inputs and state into the cache's tensors in place, as the
 attention layers write their KV cache.
+
+Under a model axis (``models.sharding``) each rank runs its own SSD heads:
+in_z, in_x, the x channels of the conv, ssm_norm and out_proj are its
+shards (out_proj row-parallel, one reduce); in_B, in_C, in_dt, A_log, D,
+dt_bias and the conv's B and C channels are replicated, and the rank
+slices out its heads' (and their group's) share after ``copy_to_model``.
+The conv runs per channel over [x | B | C], so the rank's conv channels
+are its x block followed by every B and C channel (the stated departure
+from the rule table's contiguous block).  The gated rmsnorm over d_inner
+adds the ranks' sums of squares before it divides.  Prefill launches
+``ssd_intra_chunk`` on the rank's heads.
 """
 from __future__ import annotations
 
@@ -24,6 +35,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk_plain
 from repro_torch.models.common import rmsnorm
+from repro_torch.models.sharding import (copy_to_model, model_axis,
+                                         reduce_from_model)
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
@@ -136,6 +149,57 @@ def _causal_conv(xBC, w, b):
     return y + b
 
 
+def local_ssm_layout(cfg, m: int, rank: int = 0):
+    """At m model ranks: (heads, groups, heads per group, first head, first
+    group) of rank ``rank``'s SSD heads, a contiguous block that lies in
+    one group or covers whole groups."""
+    H, G = cfg.ssm_n_heads, cfg.ssm_n_groups
+    hg = H // G
+    if H % m:
+        raise ValueError(f"{cfg.name}: {H} SSM heads do not split over a "
+                         f"model axis of {m} ranks")
+    Hl = H // m
+    if hg % Hl and Hl % hg:
+        raise ValueError(f"{cfg.name}: {Hl} heads a rank straddle groups "
+                         f"of {hg}")
+    h0 = rank * Hl
+    Gl = max(1, Hl // hg)
+    return Hl, Gl, min(hg, Hl), h0, h0 // hg
+
+
+def _sharded_gated_norm(v, scale, eps, d_full, tp):
+    """rmsnorm over d_inner split over the model axis: each rank's sum of
+    squares added over the axis (and, backward, the gradient of the
+    replicated statistic summed back), then the rank's block normalised."""
+    v32 = v.float()
+    ss = reduce_from_model(v32.square().sum(-1, keepdim=True), tp)
+    rstd = torch.rsqrt(copy_to_model(ss, tp) / d_full + eps)
+    return (v32 * rstd * (1.0 + scale.float())).to(v.dtype)
+
+
+def _tp_inputs(p, u, cfg, tp):
+    """The mixer's inputs on the rank's heads: z, the pre-conv [x | B | C],
+    dt, A and D, and the local group slice of B and C."""
+    Hl, Gl, _, h0, g0 = local_ssm_layout(cfg, tp.size, tp.rank)
+    ut = copy_to_model(u, tp)
+    z = ut @ p["in_z"]
+    xBC = torch.cat([ut @ p["in_x"], u @ p["in_B"], u @ p["in_C"]], dim=-1)
+    dt = F.softplus((u @ p["in_dt"]).float() + p["dt_bias"].float())
+    heads = slice(h0, h0 + Hl)
+    dt = copy_to_model(dt, tp)[..., heads]
+    A = -torch.exp(copy_to_model(p["A_log"], tp)[heads].float())
+    D = copy_to_model(p["D"], tp)[heads]
+    return z, xBC, dt, A, D, slice(g0, g0 + Gl)
+
+
+def _local_groups(t, groups, G, N, tp):
+    """(..., G*N) B or C rows -> the rank's groups, entering its heads."""
+    if tp is None:
+        return t
+    t = t.reshape(*t.shape[:-1], G, N)[..., groups, :]
+    return copy_to_model(t.reshape(*t.shape[:-2], -1), tp)
+
+
 def mamba_mixer(p, u, cfg, cache=None, decode=False, *, intra=None):
     """Returns (out, cache_or_None).
 
@@ -148,11 +212,18 @@ def mamba_mixer(p, u, cfg, cache=None, decode=False, *, intra=None):
     H = d_in // Pd
     G, N = cfg.ssm_n_groups, cfg.ssm_d_state
     K = cfg.ssm_d_conv
+    tp = model_axis()
 
-    z = u @ p["in_z"]
-    xBC = torch.cat([u @ p["in_x"], u @ p["in_B"], u @ p["in_C"]], dim=-1)
-    dt = F.softplus((u @ p["in_dt"]).float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
+    if tp is None:
+        z = u @ p["in_z"]
+        xBC = torch.cat([u @ p["in_x"], u @ p["in_B"], u @ p["in_C"]],
+                        dim=-1)
+        dt = F.softplus((u @ p["in_dt"]).float() + p["dt_bias"].float())
+        A = -torch.exp(p["A_log"].float())
+        D, groups, Gl = p["D"], None, G
+    else:
+        z, xBC, dt, A, D, groups = _tp_inputs(p, u, cfg, tp)
+        Gl = groups.stop - groups.start
 
     if decode:
         if cache is None:
@@ -163,13 +234,14 @@ def mamba_mixer(p, u, cfg, cache=None, decode=False, *, intra=None):
         new_conv = torch.cat([conv_state[:, 1:], xBC], dim=1)
         xBC_act = F.silu(y_conv)[:, None, :]            # (Bb,1,Cc)
         x, B_, C_ = torch.split(xBC_act, [d_in, G * N, G * N], dim=-1)
+        B_, C_ = (_local_groups(t, groups, G, N, tp) for t in (B_, C_))
         y, h = ssd_decode_step(
             cache["state"],
             x[:, 0].reshape(-1, H, Pd),
             dt[:, 0],
             A,
-            B_[:, 0].reshape(-1, G, N),
-            C_[:, 0].reshape(-1, G, N),
+            B_[:, 0].reshape(-1, Gl, N),
+            C_[:, 0].reshape(-1, Gl, N),
         )
         y = y[:, None]                                  # (Bb,1,H,P)
         x_skip = x.reshape(*x.shape[:2], H, Pd)
@@ -179,10 +251,11 @@ def mamba_mixer(p, u, cfg, cache=None, decode=False, *, intra=None):
         y_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"])
         xBC_act = F.silu(y_conv)
         x, B_, C_ = torch.split(xBC_act, [d_in, G * N, G * N], dim=-1)
+        B_, C_ = (_local_groups(t, groups, G, N, tp) for t in (B_, C_))
         Bb, S = x.shape[0], x.shape[1]
         y, h = ssd_chunked(
             x.reshape(Bb, S, H, Pd), dt, A,
-            B_.reshape(Bb, S, G, N), C_.reshape(Bb, S, G, N),
+            B_.reshape(Bb, S, Gl, N), C_.reshape(Bb, S, Gl, N),
             cfg.ssm_chunk,
             h0=cache["state"] if cache is not None else None,
             intra=intra,
@@ -192,7 +265,11 @@ def mamba_mixer(p, u, cfg, cache=None, decode=False, *, intra=None):
             cache["conv"].copy_(xBC[:, -(K - 1):, :])
             cache["state"].copy_(h)
 
-    y = y + p["D"].to(y.dtype)[:, None] * x_skip
+    y = y + D.to(y.dtype)[:, None] * x_skip
     y = y.reshape(*y.shape[:2], d_in)
-    y = rmsnorm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], cache
+    if tp is None:
+        y = rmsnorm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
+        return y @ p["out_proj"], cache
+    y = _sharded_gated_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps,
+                            cfg.d_inner, tp)
+    return reduce_from_model(y @ p["out_proj"], tp), cache

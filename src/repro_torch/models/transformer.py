@@ -16,6 +16,16 @@ a caller that prefills with them sizes the cache P + S + gen and decodes
 at positions P + S + i (fewer slots make prefill keep only the last
 ones, as a ring buffer would).
 
+Under a model axis (``models.sharding``) the embedding and the head are
+vocab-parallel: each rank looks up the tokens of its vocab block (zeros
+for the others) and one reduce adds the ranks' rows, gemma's
+``embed_scale`` applied after it; the head (the tied ``embed.T`` too)
+gives each rank its block of the logits, gathered over the axis.
+musicgen's (K, V, d) codebooks split their V the same way; llava's
+patches pass through untouched.  ``init_cache`` sizes the rank's cache:
+its KV heads, the replicated MLA latents, its SSM heads' conv channels
+and state.
+
 ``train_loss`` is the reference's: cross-entropy over the text positions
 in chunks (``chunked_xent``), plus 0.1 x the multi-token-prediction loss
 where the config has one, plus the MoE aux loss.  Its gradients come from
@@ -33,7 +43,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models.blocks import block_apply
 from repro_torch.models.common import apply_norm
 from repro_torch.models.params import block_kinds, torch_dtype
+from repro_torch.models.ssd import local_ssm_layout
 from repro_torch.models.rotary import sinusoidal
+from repro_torch.models.sharding import (copy_to_model, current_mesh,
+                                         gather_from_model, local_kv_heads,
+                                         model_axis, reduce_from_model,
+                                         use_mesh)
 
 LOSS_CHUNK = 512
 
@@ -46,7 +61,10 @@ LOSS_CHUNK = 512
 def embed_tokens(params, cfg: ArchConfig, tokens, positions):
     """tokens (B, S), or (B, S, K) for audio: the K codebook embeddings
     summed."""
-    if cfg.n_codebooks:
+    tp = model_axis()
+    if tp is not None:
+        x = _embed_vocab_parallel(params["embed"], cfg, tokens, tp)
+    elif cfg.n_codebooks:
         x = sum(params["embed"][k][tokens[..., k]]
                 for k in range(cfg.n_codebooks))
     else:
@@ -58,20 +76,43 @@ def embed_tokens(params, cfg: ArchConfig, tokens, positions):
     return x
 
 
+def _embed_vocab_parallel(embed, cfg, tokens, tp):
+    """The rank's vocab block looked up (its other tokens zero rows), the
+    ranks' rows added by one reduce."""
+    Vl = embed.shape[-2]
+    lo = tp.rank * Vl
+
+    def look(table, t):
+        i = t.long() - lo
+        ok = (i >= 0) & (i < Vl)
+        return table[i.clamp(0, Vl - 1)] * ok[..., None].to(table.dtype)
+
+    if cfg.n_codebooks:
+        x = sum(look(embed[k], tokens[..., k])
+                for k in range(cfg.n_codebooks))
+    else:
+        x = look(embed, tokens)
+    return reduce_from_model(x, tp)
+
+
 def logits_fn(params, cfg: ArchConfig, h):
     """h: (..., d) -> logits (..., Vp), audio (..., K, Vp), in f32, the
     products of h and the head summed in f32 (the reference's
     ``preferred_element_type``)."""
     head = params.get("lm_head")
+    tp = model_axis()
+    h = copy_to_model(h, tp)
     if cfg.n_codebooks:
         if head is None:
             head = params["embed"].transpose(1, 2)
         # the reference's contraction; a matmul would broadcast the (K,)
         # dim of the head against h's leading dims
-        return torch.einsum("...d,kdv->...kv", h.float(), head.float())
-    if head is None:
-        head = params["embed"].T
-    return h.float() @ head.float()
+        lg = torch.einsum("...d,kdv->...kv", h.float(), head.float())
+    else:
+        if head is None:
+            head = params["embed"].T
+        lg = h.float() @ head.float()
+    return gather_from_model(lg, lg.ndim - 1, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -146,12 +187,22 @@ def _xent_chunk(params, cfg, h_chunk, labels_chunk):
     return per.sum(), valid.sum().float()
 
 
+def _xent_chunk_on(mesh, params, cfg, h_chunk, labels_chunk):
+    """``_xent_chunk`` under the grid ``mesh``: the backward pass recomputes
+    a chunk under the forward's grid even where it is taken after the
+    grid's ``use_mesh`` has closed (the recomputed logits have the same
+    shapes either way, so a recompute without the grid would go unseen)."""
+    with use_mesh(mesh):
+        return _xent_chunk(params, cfg, h_chunk, labels_chunk)
+
+
 def chunked_xent(params, cfg, hidden2d, labels1d, chunk: int = LOSS_CHUNK):
     """hidden2d: (T,d); labels1d: (T[,K]).  -1 labels are masked.
 
     T is padded up to a multiple of the chunk with -1 labels, as the
     reference pads it; each chunk's logits are recomputed in the backward
-    pass (the reference's ``jax.checkpoint``) when gradients are taken.
+    pass (the reference's ``jax.checkpoint``) when gradients are taken,
+    under the grid of the forward.
     """
     T = hidden2d.shape[0]
     c = min(chunk, T)
@@ -168,8 +219,8 @@ def chunked_xent(params, cfg, hidden2d, labels1d, chunk: int = LOSS_CHUNK):
     for i in range(T // c):
         h, lab = hidden2d[i * c:(i + 1) * c], labels1d[i * c:(i + 1) * c]
         if grad:
-            ds, dn = checkpoint(_xent_chunk, params, cfg, h, lab,
-                                use_reentrant=False)
+            ds, dn = checkpoint(_xent_chunk_on, current_mesh(), params, cfg,
+                                h, lab, use_reentrant=False)
         else:
             ds, dn = _xent_chunk(params, cfg, h, lab)
         s, n = s + ds, n + dn
@@ -230,6 +281,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     device = resolve_device(device, meta=True)
     dtype = torch_dtype(cfg)
     slots = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    tp = model_axis()
+    m = 1 if tp is None else tp.size
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(*shape, dtype=dt, device=device)
@@ -246,7 +299,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
                                           device=device),
                 }
             else:
-                width = cfg.n_kv_heads * cfg.head_dim
+                width = (cfg.n_kv_heads if tp is None else
+                         local_kv_heads(cfg, m)) * cfg.head_dim
                 c["attn"] = {
                     "k": zeros(L, batch, slots, width),
                     "v": zeros(L, batch, slots, width),
@@ -256,10 +310,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
         if kind in ("ssm", "hybrid"):
             G, N = cfg.ssm_n_groups, cfg.ssm_d_state
             hg = cfg.ssm_n_heads // G
-            conv_ch = cfg.d_inner + 2 * G * N
+            Gl = G
+            if tp is not None:
+                _, Gl, hg, _, _ = local_ssm_layout(cfg, m)
+            conv_ch = cfg.d_inner // m + 2 * G * N
             c["ssm"] = {
                 "conv": zeros(L, batch, cfg.ssm_d_conv - 1, conv_ch),
-                "state": zeros(L, batch, G, hg, cfg.ssm_head_dim, N,
+                "state": zeros(L, batch, Gl, hg, cfg.ssm_head_dim, N,
                                dt=torch.float32),
             }
         cache[name] = c

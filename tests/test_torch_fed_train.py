@@ -148,7 +148,14 @@ def test_lm_task_matches_reference(arch):
         assert tuple(leaf.shape) == want[name].shape
         assert str(leaf.dtype).removeprefix("torch.") == str(
             want[name].dtype)
-    assert task.param_specs(mine) is None
+    # the rule table's specs, keyed as the leaves (the reference's
+    # param_specs over its tree)
+    jspecs = jtask.param_specs(shapes)
+    want = {"/".join(k.key for k in path): tuple(spec) for path, spec in
+            jax.tree_util.tree_flatten_with_path(
+                jspecs, is_leaf=lambda x: isinstance(
+                    x, jax.sharding.PartitionSpec))[0]}
+    assert task.param_specs(mine) == want
 
 
 def test_build_fleet_matches_reference():
@@ -542,15 +549,22 @@ def test_fed_train_cli_matches_reference(mamba, monkeypatch):
 
 
 def test_fed_train_refuses_the_mesh_axes():
-    """--model, --pod and a sharded client-sequential round wait for
-    ROADMAP item 6; --data needs an initialised process group."""
+    """The grid flags as the reference parses them: --model or --pod
+    without --data is the reference's error; a sharded client-sequential
+    round waits for ROADMAP item 6's next step; --data (with --model or
+    --pod) needs an initialised process group."""
     base = ["--device", "cpu", "--rounds", "1", "--quiet"]
-    for extra in (["--model", "2", "--data", "1"], ["--pod", "2"],
-                  ["--data", "1", "--mode", "client_sequential"]):
-        with pytest.raises(ValueError, match="ROADMAP item 6"):
+    for extra in (["--model", "2"], ["--pod", "2"]):
+        with pytest.raises(SystemExit):
             fed_train.main(base + extra)
-    with pytest.raises(RuntimeError, match="process group"):
-        fed_train.main(base + ["--data", "1"])
+        with pytest.raises(SystemExit):
+            jfed_train.main(base[2:] + extra)
+    with pytest.raises(ValueError, match="ROADMAP item 6"):
+        fed_train.main(base + ["--data", "1", "--mode", "client_sequential"])
+    for extra in (["--data", "1"], ["--data", "1", "--model", "2"],
+                  ["--pod", "2", "--data", "1", "--model", "2"]):
+        with pytest.raises(RuntimeError, match="process group"):
+            fed_train.main(base + extra)
 
 
 # -- the LM checkpoint across the packages ------------------------------------

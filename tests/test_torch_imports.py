@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
 or the port's tools: ``tools/weighted_agg_quant_turns.py``,
-``tools/paper_drift.py``, ``tools/batch_invariance.py``) imports jax, the
+``tools/paper_drift.py``, ``tools/batch_invariance.py``,
+``tools/tp_cards.py``) imports jax, the
 reference package or ``ml_dtypes`` (the card's machine has no ml_dtypes:
 the checkpoints carry bf16 leaves through torch), and its entry points
 refuse to run without a CUDA device unless the CPU is asked for."""
@@ -40,7 +41,9 @@ for name in ("repro_torch.fed.sharding", "repro_torch.core.theory",
              "repro_torch.optim.sgd", "repro_torch.launch.train",
              "repro_torch.configs.llava_next_34b",
              "repro_torch.configs.musicgen_medium",
-             "repro_torch.launch.steps", "repro_torch.launch.fed_train"):
+             "repro_torch.launch.steps", "repro_torch.launch.fed_train",
+             "repro_torch.launch.mesh", "repro_torch.launch.cluster",
+             "repro_torch.models.sharding"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -69,7 +72,8 @@ FORBIDDEN = re.compile(
                          + [ROOT / "chip_smoke.py",
                             ROOT / "tools" / "weighted_agg_quant_turns.py",
                             ROOT / "tools" / "paper_drift.py",
-                            ROOT / "tools" / "batch_invariance.py"],
+                            ROOT / "tools" / "batch_invariance.py",
+                            ROOT / "tools" / "tp_cards.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_reference(path):
     assert not FORBIDDEN.findall(path.read_text()), path
